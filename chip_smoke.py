@@ -17,7 +17,21 @@ at the first failed phase:
 5. the slice: DemoApp(1920, 1080) for 1 warm-up plus 60 timed frames,
    exactly one K1 launch per frame, ms/frame beside the plain-version
    path's;
-6. a JSON line of the kernels, the card line, and the last line
+6. the stress scene: StressApp at full width (3840x2160, terrain 708
+   plus 10,000 instanced markers: 1,012,528 triangles, two batches, one
+   merged pass) for 1 warm-up plus 20 timed frames, exactly one K1
+   launch per frame, a finite framebuffer and the peak device memory;
+   K1 against its plain version on frame 1's records (winners exact,
+   depth and planes 0 ulp); a few frames of the plain-version path, its
+   last frame bit-equal to the K1 path's; K1 alone at these shapes
+   beside its plain version; where the frame's time goes (a fence
+   around each layer, and the device's busy share from torch.profiler);
+7. the sequential frame path on the card: a later surface that clears
+   and a depth_write=False pipeline, one K1 launch per batch, the
+   framebuffer and every pass's winners equal to the CPU's bit for bit;
+8. fragment-stage texture sampling through K1: the textured quad
+   against tests/goldens/textured_128.png (the goldens rule);
+9. a JSON line of the kernels, the card line, and the last line
    {"ok": true, "device": {...}}.
 
 Imports no JAX. Needs one CUDA card; fails without one.
@@ -26,6 +40,7 @@ Imports no JAX. Needs one CUDA card; fails without one.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -38,6 +53,9 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 TIMED_FRAMES = 60
 PLAIN_FRAMES = 30     # plain-version path frames, before and after K1's
+STRESS_FRAMES = 20
+STRESS_PLAIN_FRAMES = 3   # plain-version path frames after its warm-up
+PROFILE_FRAMES = 3
 
 
 def phase(name: str):
@@ -121,20 +139,28 @@ def compare_k1(inputs, label):
 
 
 @contextlib.contextmanager
-def capture_k1_inputs(store: list):
-    """Record the arguments of every K1 call the frame makes."""
+def capture_k1_inputs(store: list, packed_rows: list = None):
+    """Record the arguments of every K1 call the frame makes (and, into
+    ``packed_rows``, the packed record count of each raster pass)."""
     from myrenderer_tpu_torch.ops import raster
-    orig = raster.rasterize_tiles
+    orig, orig_bin = raster.rasterize_tiles, raster.bin_packed
 
     def wrapped(stream, starts, counts, depth, **kw):
         store.append((stream, starts, counts, depth))
         return orig(stream, starts, counts, depth, **kw)
 
+    def wrapped_bin(packed, *args):
+        if packed_rows is not None:
+            packed_rows.append(packed.shape[0])
+        return orig_bin(packed, *args)
+
     raster.rasterize_tiles = wrapped
+    raster.bin_packed = wrapped_bin
     try:
         yield
     finally:
         raster.rasterize_tiles = orig
+        raster.bin_packed = orig_bin
 
 
 @contextlib.contextmanager
@@ -174,6 +200,171 @@ def time_call(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+@contextlib.contextmanager
+def fenced_layers(totals: dict):
+    """Add each frame layer's wall time, fenced by a device sync before
+    and after it, into ``totals`` (ms by layer)."""
+    from myrenderer_tpu_torch.ops import raster
+    from myrenderer_tpu_torch.renderer import draw
+    targets = [(draw, "_batch_vertex_products", "vertex stage (incl. cull)"),
+               (draw, "_setup_batch", "clip + setup + pack"),
+               (raster, "bin_packed", "binning"),
+               (raster, "rasterize_tiles", "K1"),
+               (raster, "shade_from_planes_ranges", "shade"),
+               (draw.Draw, "_gather_args", "_gather_args (host to device)")]
+    saved = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
+
+    def fence(fn, label):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            totals[label] = (totals.get(label, 0.0)
+                             + (time.perf_counter() - t0) * 1000.0)
+            return out
+        return timed
+
+    for (owner, name, label), (_o, _n, fn) in zip(targets, saved):
+        setattr(owner, name, fence(fn, label))
+    try:
+        yield
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def sequential_scene(device):
+    """A frame for the sequential path: surface 1 holds a
+    depth_write=False batch and a depth-writing one, surface 2 clears
+    first and holds one more batch. Random triangles from a seed.
+    Returns a function that draws the frame and returns (framebuffer,
+    winners of every raster pass)."""
+    from myrenderer_tpu_torch import (BindingLayout, Core, Draw, Instance,
+                                      Pipeline, Renderer, SceneNode,
+                                      Surface, VertexBuffer, VertexLayout,
+                                      math3d)
+    from myrenderer_tpu_torch.ops.vertex_stage import matvec4
+    from myrenderer_tpu_torch.renderer.pipeline import BUILTIN_TRANSFORM
+    core = Core(fixed_timestep=1.0 / 60.0)
+    window = core.create_window(256, 256, "sequential")
+    rend = Renderer(core, device=device)
+    rend.adopt_window(window)
+    rend.debug_winner = True
+    layout = VertexLayout.create([("pos", 3), ("color", 3)])
+
+    def vfn(ctx):
+        p, c = ctx.attr("pos"), ctx.attr("color")
+        one = torch.ones((), dtype=torch.float32, device=p.device)
+        return (matvec4(ctx.world, torch.stack([p[0], p[1], p[2], one])),
+                torch.stack([c[0], c[1], c[2], one]))
+
+    def pipe(**kw):
+        return Pipeline.create(rend, vertex_fn=vfn, vertex_layout=layout,
+                               bindings=[BindingLayout(0, BUILTIN_TRANSFORM)],
+                               cull_mode="none", **kw)
+
+    nodepth, flat = pipe(depth_write=False), pipe()
+    surfaces = []
+    for seeds in (((nodepth, 1), (flat, 2)), ((flat, 3),)):
+        root = SceneNode.create(rend)
+        for pl, seed in seeds:
+            rng = np.random.default_rng(seed)
+            rows = np.concatenate([rng.uniform(-0.1, 1.1, (300, 3, 2)),
+                                   rng.uniform(0.2, 1.8, (300, 3, 1)),
+                                   rng.uniform(0, 1, (300, 3, 3))], -1)
+            vb = VertexBuffer.new(rend, 0, 300, layout)
+            vb.write_vertices(rows.astype(np.float32).reshape(-1, 6))
+            node = Instance.create_node(rend, pipeline=pl)
+            node.get_backing().set_vertex_buffer(vb)
+            root.add_child(node)
+        surf = Surface.create_window_scene(rend, window, root)
+        surf.set_perspective(math3d.projection_2d(
+            left=0.0, right=1.0, bottom=1.0, top=0.0, near=0.1, far=2.0))
+        surfaces.append(surf)
+    draw = Draw.create(rend)
+
+    def frame():
+        draw.begin()
+        draw.clear((0.0, 0.0, 1.0, 1.0))
+        draw.draw_surface(surfaces[0])
+        draw.clear((0.2, 0.1, 0.0, 1.0))
+        draw.draw_surface(surfaces[1])
+        draw.end()
+        return window.framebuffer, draw.last_winners
+
+    return frame
+
+
+def textured_quad_frame(device, size=128):
+    """The fragment-ctx quad (tests/test_render_e2e.py): a 4x4 checker
+    sampled per pixel by a two-parameter fragment program. Returns the
+    frame's uint8 pixels."""
+    from myrenderer_tpu_torch import (Binding, BindingLayout, Core, Draw,
+                                      Instance, Pipeline, Renderer, Surface,
+                                      VertexBuffer, VertexLayout, math3d)
+    from myrenderer_tpu_torch.ops.sampling import sample_nearest
+    from myrenderer_tpu_torch.ops.vertex_stage import matvec4
+    from myrenderer_tpu_torch.renderer.pipeline import (BUILTIN_TRANSFORM,
+                                                        TEXTURE_VIEW)
+    core = Core(fixed_timestep=1.0 / 60.0)
+    window = core.create_window(size, size, "textured")
+    rend = Renderer(core, device=device)
+    rend.adopt_window(window)
+    layout = VertexLayout.create([("pos", 2), ("uv", 2)])
+
+    def vfn(ctx):
+        p, uv = ctx.attr("pos"), ctx.attr("uv")
+        one = torch.ones((), dtype=torch.float32, device=p.device)
+        return (matvec4(ctx.world, torch.stack([p[0], p[1], one, one])),
+                torch.stack([uv[0], uv[1], torch.zeros_like(one), one]))
+
+    pipe = Pipeline.create(
+        rend, vertex_fn=vfn,
+        fragment_fn=lambda vary, ctx: sample_nearest(ctx.binding(1),
+                                                     vary[..., :2]),
+        bindings=[BindingLayout(0, BUILTIN_TRANSFORM),
+                  BindingLayout(1, TEXTURE_VIEW)],
+        vertex_layout=layout)
+    tex = np.zeros((4, 4, 4), np.float32)
+    for y in range(4):
+        for x in range(4):
+            tex[y, x] = [1, 0, 0, 1] if (x + y) % 2 == 0 else [0, 1, 0, 1]
+    vb = VertexBuffer.new(rend, 0, 2, layout)
+    lo, hi = 0.1, 0.9
+    vb.write_vertices(np.array([
+        [lo, lo, 0, 0], [hi, lo, 1, 0], [lo, hi, 0, 1],
+        [hi, lo, 1, 0], [hi, hi, 1, 1], [lo, hi, 0, 1]], np.float32))
+    node = Instance.create_node(rend, pipeline=pipe,
+                                bindings=[Binding(1, attachment=tex)])
+    node.get_backing().set_vertex_buffer(vb)
+    surf = Surface.create_window_scene(rend, window, node)
+    surf.set_perspective(math3d.projection_2d(
+        left=0.0, right=1.0, bottom=1.0, top=0.0, near=0.1, far=2.0))
+    draw = Draw.create(rend)
+    draw.begin()
+    draw.clear((0, 0, 1, 1))
+    draw.draw_surface(surf)
+    draw.end()
+    return window.read_pixels()
+
+
+def assert_goldens_rule(got, name):
+    from myrenderer_tpu_torch.utils.png import load_rgba8
+    want = load_rgba8(os.path.join(REPO, "tests", "goldens", name))
+    diff = np.abs(got.astype(int) - want.astype(int))
+    exact = float((diff == 0).mean())
+    print(f"  {name}: max diff {int(diff.max())}, exact {exact:.6f}")
+    if diff.max() > 1 or exact <= 0.999:
+        raise AssertionError(f"{name} differs")
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(
+        a.cpu().contiguous().view(torch.int32),
+        b.cpu().contiguous().view(torch.int32))
+
+
 def main() -> int:
     phase("1 environment")
     if not torch.cuda.is_available():
@@ -182,7 +373,6 @@ def main() -> int:
         return 1
     from myrenderer_tpu_torch.app.demo import DemoApp
     from myrenderer_tpu_torch.ops import raster_cuda as rk
-    from myrenderer_tpu_torch.utils.png import load_rgba8
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     card = card_line()
@@ -247,15 +437,8 @@ def main() -> int:
         app.run(frame)
         if rk.K1.launches - launches != frame:
             raise AssertionError("golden frames did not go through K1")
-        got = app.window.read_pixels()
-        want = load_rgba8(os.path.join(REPO, "tests", "goldens",
-                                       f"demo_128_frame{frame}.png"))
-        diff = np.abs(got.astype(int) - want.astype(int))
-        exact = float((diff == 0).mean())
-        print(f"  frame {frame}: max diff {int(diff.max())}, exact "
-              f"{exact:.6f}")
-        if diff.max() > 1 or exact <= 0.999:
-            raise AssertionError(f"golden frame {frame} differs")
+        assert_goldens_rule(app.window.read_pixels(),
+                            f"demo_128_frame{frame}.png")
 
     phase("5 the slice: DemoApp 1920x1080")
     app = DemoApp(1920, 1080, device="cuda")
@@ -298,18 +481,165 @@ def main() -> int:
           f"{k1_ms:.4f} ms (runs {k_a:.4f}, {k_b:.4f}); plain version "
           f"{k1_plain_ms:.3f} ms (runs {p1:.3f}, {p2:.3f}); card: {card}")
 
-    phase("6 results")
+    phase("6 the stress scene: StressApp 3840x2160")
+    from myrenderer_tpu_torch.app.stress import StressApp
+    from myrenderer_tpu_torch.utils.profiling import trace
+    # free the demo phases' device memory, so the stress peak is its own
+    # (a renderer and its scene nodes form reference cycles: collect them)
+    del (app, plain, frames, k1_inputs, rfused, rwinner, cfused, cwinner,
+         fb, fb_gpu, fb_cpu)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    stress = StressApp(device="cuda")
+    print(f"  triangles/frame: {stress.triangles} (built in "
+          f"{time.perf_counter() - t0:.3f} s)")
+    if stress.triangles != 1_012_528:
+        raise AssertionError("the stress scene is not at full width")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    store, packed_rows = [], []
+    launches = rk.K1.launches
+    with capture_k1_inputs(store, packed_rows):
+        stress.tick()                                   # warm-up, frame 1
+    torch.cuda.synchronize()
+    # the scene's state plus frame 1's temporaries
+    peak = torch.cuda.max_memory_allocated() - base
+    if rk.K1.launches - launches != 1 or len(store) != 1:
+        raise AssertionError("the stress frame is not one K1 launch")
+    s_inputs = store[0]
+    print(f"  frame 1: {packed_rows[0]} packed records, "
+          f"{s_inputs[0].shape[0]} binned stream rows, clip scale "
+          f"{stress.draw.clip_scale}; peak device memory "
+          f"{peak / 2**20:.1f} MiB (above {base / 2**20:.1f} MiB held "
+          f"before the scene was built)")
+    s_err = compare_k1(s_inputs, "stress 3840x2160 frame 1")
+    # frames 2 .. 1 + STRESS_PLAIN_FRAMES, kept to hold the plain path to
+    for _ in range(STRESS_PLAIN_FRAMES):
+        stress.tick()
+    fb_k1 = stress.window.framebuffer.clone()
+    rk.K1.launches = 0
+    stress_ms = time_frames(stress, STRESS_FRAMES)
+    stress_launches = rk.K1.launches
+    if stress_launches != STRESS_FRAMES:
+        raise AssertionError(f"K1 launched {stress_launches} times in "
+                             f"{STRESS_FRAMES} stress frames")
+    fb = stress.window.framebuffer
+    if fb.shape != (2160, 3840, 4) or not bool(torch.isfinite(fb).all()):
+        raise AssertionError("stress framebuffer is not finite f32[2160, "
+                             "3840, 4]")
+    plain = StressApp(device="cuda")
+    with plain_k1():
+        plain.tick()
+        stress_plain_ms = time_frames(plain, STRESS_PLAIN_FRAMES)
+    if not bits_equal(plain.window.framebuffer, fb_k1):
+        raise AssertionError("stress frame: the plain path differs from "
+                             "the K1 path")
+    del plain
+    print(f"  K1 path: {stress_ms:.3f} ms/frame over {STRESS_FRAMES} frames "
+          f"({stress.triangles / stress_ms / 1e3:.2f} Mtri/s), "
+          f"{stress_launches} K1 launches; plain-version path: "
+          f"{stress_plain_ms:.3f} ms/frame over {STRESS_PLAIN_FRAMES} "
+          f"frames, last frame bit-equal to the K1 path's; card: {card}")
+    # K1 alone at the stress frame-1 shapes (plain, K1, K1, plain)
+    p1 = time_call(lambda: rk.rasterize_tiles_reference(*s_inputs), 2)
+    launches = rk.K1.launches
+    k_a = time_call(lambda: rk.K1(*s_inputs), 50)
+    k_b = time_call(lambda: rk.K1(*s_inputs), 50)
+    rk.K1.launches = launches        # timing launches are not the path's
+    p2 = time_call(lambda: rk.rasterize_tiles_reference(*s_inputs), 2)
+    s_k1_ms, s_plain_ms = min(k_a, k_b), min(p1, p2)
+    print(f"  K1 at stress frame-1 shapes ({s_inputs[0].shape[0]} stream "
+          f"rows, 3840x2160): {s_k1_ms:.4f} ms (runs {k_a:.4f}, {k_b:.4f}); "
+          f"plain version {s_plain_ms:.3f} ms (runs {p1:.3f}, {p2:.3f}); "
+          f"card: {card}")
+    # where the frame's time goes: a fence around each layer, then the
+    # device's busy share over unfenced frames
+    totals = {}
+    with fenced_layers(totals):
+        fenced_ms = time_frames(stress, PROFILE_FRAMES)
+    for label, total in sorted(totals.items(), key=lambda kv: -kv[1]):
+        print(f"  fenced {label}: {total / PROFILE_FRAMES:.3f} ms/frame")
+    print(f"  fenced total: {fenced_ms:.3f} ms/frame")
+    torch.cuda.synchronize()
+    with trace(os.path.join(REPO, "build", "stress_trace")) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_FRAMES):
+            stress.tick()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000.0
+    # device-side events only (kernels, copies, fills): the host ops
+    # that launched them carry the same time again
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"  profiled {PROFILE_FRAMES} frames: {wall_ms / PROFILE_FRAMES:.3f} "
+          f"ms/frame wall, device busy {device_ms / PROFILE_FRAMES:.3f} "
+          f"ms/frame ({100.0 * device_ms / wall_ms:.1f} % of the profiled "
+          f"wall, {100.0 * device_ms / PROFILE_FRAMES / stress_ms:.1f} % of "
+          f"the unprofiled frame), {len(kernels) / PROFILE_FRAMES:.0f} "
+          f"device ops/frame")
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"    {t / 1e3 / PROFILE_FRAMES:.3f} ms/frame  "
+              f"{n // PROFILE_FRAMES:5d}x  {name[:70]}")
+    for group, key in (("torch.cat copies", "CatArrayBatchedCopy"),
+                       ("elementwise kernels", "elementwise_kernel"),
+                       ("host-to-device copies", "Memcpy HtoD")):
+        rows = [v for name, v in by_name.items() if key in name]
+        print(f"    group {group}: "
+              f"{sum(t for t, _ in rows) / 1e3 / PROFILE_FRAMES:.3f} ms/frame, "
+              f"{sum(n for _, n in rows) // PROFILE_FRAMES}x")
+    del stress
+
+    phase("7 the sequential frame path on the card")
+    frames = {d: sequential_scene(d) for d in ("cuda", "cpu")}
+    rk.K1.launches = 0
+    fb_gpu, win_gpu = frames["cuda"]()
+    seq_launches = rk.K1.launches
+    fb_cpu, win_cpu = frames["cpu"]()
+    if seq_launches != 3 or len(win_gpu) != 3:
+        raise AssertionError(f"sequential frame: {seq_launches} K1 launches "
+                             "for 3 batches")
+    if not bits_equal(fb_gpu, fb_cpu) or not all(
+            torch.equal(a.cpu(), b) for a, b in zip(win_gpu, win_cpu)):
+        raise AssertionError("sequential frame differs from the CPU's")
+    print(f"  {seq_launches} K1 launches for 3 batches; framebuffer and "
+          f"every pass's winners equal the CPU frame's "
+          f"({[int((w >= 0).sum()) for w in win_cpu]} covered pixels)")
+
+    phase("8 fragment-stage texture sampling through K1")
+    rk.K1.launches = 0
+    assert_goldens_rule(textured_quad_frame("cuda"), "textured_128.png")
+    tex_launches = rk.K1.launches
+    if tex_launches != 1:
+        raise AssertionError("the textured frame did not go through K1")
+
+    phase("9 results")
+    by_path = {"demo_1080p": path_launches, "stress_4k": stress_launches,
+               "sequential": seq_launches, "textured": tex_launches}
     print(json.dumps({"kernels": [{
         "name": "K1 raster_tile",
         "route": "cuda",
         "source": "myrenderer_tpu_torch/csrc/raster_tile.cu",
         "replaces": "myrenderer_tpu/ops/raster_pallas.py:659",
-        "launches": path_launches,
-        "max_abs_err": max_err,
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": max(max_err, s_err),
         "ms": k1_ms,
         "plain_ms": k1_plain_ms,
         "frame_ms": ms,
         "plain_frame_ms": plain_ms,
+        "stress_ms": s_k1_ms,
+        "stress_plain_ms": s_plain_ms,
+        "stress_frame_ms": stress_ms,
+        "stress_plain_frame_ms": stress_plain_ms,
+        "stress_peak_mib": peak / 2**20,
         "build_s": rk.K1.build_seconds,
     }]}))
     print(card)

@@ -19,7 +19,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..geometry import Triangulation
+from ..geometry import Triangulation, triangulate_device
 from ..renderer import (Instance, Pipeline, SceneNode, VertexBuffer,
                         VertexLayout)
 from ..ops.vertex_stage import matvec4
@@ -70,16 +70,21 @@ class Polygon:
 
     GPU_VERTEX_LAYOUT = VertexLayout.create([("pos", 2), ("color", 3)])
 
-    def __init__(self, renderer, seed: int = 0):
-        """Polygons are triangulated on the host (Seidel). The JAX
-        package's on-device ear clipper (``geometry/device_tri.py``) is
-        not ported yet (ROADMAP queue 1, item 4)."""
+    def __init__(self, renderer, seed: int = 0,
+                 device_triangulation: bool = False):
+        """``device_triangulation``: triangulate each polygon when it is
+        created with the ear clipper on the renderer's device
+        (``geometry/device_tri.py``) instead of the host Seidel path.
+        Both cover the same pixels; the diagonals, and so the palette
+        boundaries inside a polygon, generally differ, so the default
+        stays Seidel (the goldens' triangulation)."""
         self.renderer = renderer
         self.pipeline = Pipeline.create(
             renderer, vertex_fn=_vertex_fn,
             bindings=[BindingLayout(0, BUILTIN_TRANSFORM)],
             vertex_layout=self.GPU_VERTEX_LAYOUT)
         self.triangulation = Triangulation(seed)
+        self.device_triangulation = device_triangulation
         self.polygons: list[PolygonHandle] = []
 
     def init(self):  # parity no-op (pipeline built in __init__)
@@ -101,7 +106,12 @@ class Polygon:
             rows[i, 2:5] = color
             state["i"] += 1
 
-        self.triangulation.create_polygon(vertices, emit)
+        if self.device_triangulation:
+            for point in triangulate_device(vertices, capacity=max(32, n),
+                                            device=self.renderer.device):
+                emit(point)
+        else:
+            self.triangulation.create_polygon(vertices, emit)
         if state["i"] != vb.vertex_count:
             raise ValueError(
                 f"triangulation emitted {state['i']} vertices, expected "

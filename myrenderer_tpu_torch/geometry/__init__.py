@@ -1,3 +1,4 @@
+from .device_tri import triangulate_device, triangulate_indices
 from .triangulation import Triangulation, TriangulationError, triangulate
 from .unirand import Unirand, unirand_seed
 
@@ -5,6 +6,8 @@ __all__ = [
     "Triangulation",
     "TriangulationError",
     "triangulate",
+    "triangulate_device",
+    "triangulate_indices",
     "Unirand",
     "unirand_seed",
 ]

@@ -111,17 +111,22 @@ def _plane(aa, bb, cc, vals, forms):
                         dot3(cc, forms[2])], dim=1)
 
 
-def _plane_forms(cull_mode: str, planar: bool, biased: bool):
+def _plane_forms(cull_mode: str, planar: bool, biased: bool,
+                 oracle: bool = False):
     """Rounding forms of the (z, w, varying) planes' (a, b, c) columns,
     pinned bit for bit against the JAX package on the CPU, whose
     compiler picks the product it fuses first by the shape of each
     column's expression graph: the cull mode's sign flip, the JAX
     package's planar layout (whole-stream vertex functions) and, for
-    the depth plane, whether a z bias is set all change it."""
+    the depth plane, whether a z bias is set all change it. The oracle
+    backend's graph (setup compiled with the full-frame rasterizer)
+    has forms of its own, the same for both layouts."""
     if cull_mode == "front":
         return ((1, 1, 1),) * 3
     if cull_mode == "none":
         return ((0, 0, 0),) * 3
+    if oracle:
+        return (1, 0, 0), (1, 0, 0), (0, 0, 0)
     if not planar:
         return ((1, 0, 0),) * 3
     return ((1, 0, 0) if biased else (1, 0, 1)), (1, 0, 0), (1, 0, 1)
@@ -131,7 +136,7 @@ def triangle_setup(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
                    valid: torch.Tensor, width: int, height: int,
                    cull_mode: str = "back",
                    z_bias: Optional[float] = None,
-                   planar: bool = False) -> TriCoeffs:
+                   planar: bool = False, oracle: bool = False) -> TriCoeffs:
     """Assemble per-triangle plane coefficients.
 
     tri_clip f32[T, 3, 4], tri_vary f32[T, 3, C], valid bool[T].
@@ -141,7 +146,8 @@ def triangle_setup(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
     constant (z_clip += bias * w); the merged multi-surface pass gives
     surface s the bias 2*(S-1-s), and the record's z window becomes
     [bias, bias + 1]. ``planar`` marks triangles from a whole-stream
-    vertex function (:attr:`Triangles.planar`)."""
+    vertex function (:attr:`Triangles.planar`); ``oracle`` takes the
+    oracle backend's rounding forms (``_plane_forms``)."""
     f32 = torch.float32
     cpl = tri_clip.to(f32).permute(1, 2, 0)          # [3, 4, T]
     vpl = tri_vary.to(f32).permute(1, 2, 0)          # [3, C, T]
@@ -196,7 +202,7 @@ def triangle_setup(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
         zhi = valid.to(f32)   # window [0, 1]
 
     z_form, w_form, col_form = _plane_forms(cull_mode, planar,
-                                            z_bias is not None)
+                                            z_bias is not None, oracle)
     z_abc = _plane(aa, bb, cc, zs, z_form)
     w_abc = _plane(aa, bb, cc, ws, w_form)
     en_abc = torch.stack([aa[0] + aa[1] + aa[2], bb[0] + bb[1] + bb[2],
@@ -251,6 +257,12 @@ def _clip_straddlers(tri_clip: torch.Tensor, tri_vary: torch.Tensor):
     return tri1_clip, tri1_vary, tri2_clip, tri2_vary, valid1, valid2
 
 
+class ClipOverflow(RuntimeError):
+    """More triangles of a batch straddle the eye plane than its clip
+    capacity holds. ``Draw`` answers it as the reference does: it raises
+    the capacity and renders the frame again."""
+
+
 def select_straddlers(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
                       valid: torch.Tensor, cap: int):
     """Extract up to ``cap`` eye-plane straddlers (a vertex at
@@ -261,17 +273,16 @@ def select_straddlers(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
     bool[2cap], sel i32[cap]): the appendee block, laid out as the
     reference lays it out (first triangles of all slots, then second
     triangles), so each batch reserves ``2*cap`` ids after its own.
-    Raises when more than ``cap`` triangles straddle: the reference
-    re-renders with a larger capacity, which this port does not do."""
+    Raises :class:`ClipOverflow` when more than ``cap`` triangles
+    straddle."""
     T = tri_clip.shape[0]
     w = tri_clip[..., 3]
     straddle = valid & (w > W_EPS).any(-1) & (w <= W_EPS).any(-1)
     sel = torch.nonzero(straddle).flatten().to(torch.int32)
     n = sel.shape[0]          # one host sync per batch
     if n > cap:
-        raise RuntimeError(
-            f"{n} triangles straddle the eye plane, more than the "
-            f"clip capacity {cap} of a batch")
+        raise ClipOverflow(f"{n} triangles straddle the eye plane, more "
+                           f"than the clip capacity {cap} of a batch")
     sel_live = torch.zeros(cap, dtype=torch.bool, device=w.device)
     sel_live[:n] = True
     pad = torch.full((cap - n,), max(T - 1, 0), dtype=torch.int32,
@@ -284,6 +295,23 @@ def select_straddlers(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
     app_vary = torch.cat([t1v, t2v])
     app_valid = torch.cat([v1 & sel_live, v2 & sel_live])
     return app_clip, app_vary, app_valid, sel
+
+
+def clip_near_capacity(tris: Triangles, valid: torch.Tensor, cap: int):
+    """The oracle's eye-plane clipping stage: the appendee block of
+    :func:`select_straddlers` concatenated after the batch. Returns
+    (Triangles [T + 2cap], valid bool[T + 2cap]).
+
+    As in the reference, the result is in array order: a permuted
+    producer's ``ids`` do not survive (the appendees have no submission
+    ranks), so the oracle's winner ids and depth ties follow the array
+    order; ``planar`` does, since it selects the setup's rounding
+    forms."""
+    app_clip, app_vary, app_valid, _sel = select_straddlers(
+        tris.clip, tris.vary, valid, cap)
+    return (Triangles(torch.cat([tris.clip, app_clip]),
+                      torch.cat([tris.vary, app_vary]), None, tris.planar),
+            torch.cat([valid, app_valid]))
 
 
 def pack_coeffs(tc: TriCoeffs) -> torch.Tensor:
@@ -350,3 +378,38 @@ def coverage_depth(rec: torch.Tensor, px, py):
     z = edge_eval(zna, znb, znc, px, py) / edge_eval(wna, wnb, wnc, px, py)
     cov = cov & (z >= zhi - 1.0) & (z <= zhi)
     return cov, z
+
+
+def depth_test_update(cov, z, depth, winner, tri_index):
+    """Depth 'less' test against the running depth buffer
+    (``Pipeline.zig:150-154``): covered pixels with z < depth take z and
+    ``tri_index`` (an int, or one index per pixel). Ties keep the
+    earlier triangle."""
+    win = cov & (z < depth)
+    return (torch.where(win, z, depth),
+            torch.where(win, torch.as_tensor(tri_index, dtype=winner.dtype,
+                                             device=winner.device), winner))
+
+
+def resolve_varyings(tc: TriCoeffs, winner: torch.Tensor, px, py):
+    """Perspective-correct varyings of each pixel's winning triangle.
+    Returns (varyings f32[H, W, C], covered bool[H, W]); uncovered
+    pixels read triangle 0."""
+    covered = winner >= 0
+    t = torch.clamp(winner, min=0).long()
+    en_abc = tc.en_abc[t]                                 # [H, W, 3]
+    col_abc = tc.col_abc[t]                               # [H, W, 3, C]
+    en = edge_eval(en_abc[..., 0], en_abc[..., 1], en_abc[..., 2], px, py)
+    cn = edge_eval(col_abc[..., 0, :], col_abc[..., 1, :],
+                   col_abc[..., 2, :], px[..., None], py[..., None])
+    return cn / en[..., None], covered
+
+
+def pixel_grids(height: int, width: int, device=None):
+    """Pixel-center coordinate grids (px, py), f32[height, width]."""
+    f32 = torch.float32
+    py = (torch.arange(height, dtype=f32, device=device)[:, None]
+          + 0.5).expand(height, width)
+    px = (torch.arange(width, dtype=f32, device=device)[None, :]
+          + 0.5).expand(height, width)
+    return px, py

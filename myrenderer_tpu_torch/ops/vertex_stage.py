@@ -73,6 +73,22 @@ def cull_aabb(clip_mats: torch.Tensor, aabb_min: torch.Tensor,
     return torch.where(finite, ~outside, torch.ones_like(outside))
 
 
+def bitcast_u32(x) -> torch.Tensor:
+    """Reinterpret f32 bits as u32: how vertex and fragment functions
+    read integer fields of managed bindings (a WGSL ``u32`` uniform
+    member, e.g. ``Terrain.zig:56`` ``size: u32``). Bit-exact: managed
+    stores keep integer payloads as raw bits."""
+    return torch.as_tensor(x, dtype=torch.float32).view(torch.uint32)
+
+
+def bitcast_f32(x) -> torch.Tensor:
+    """Inverse of :func:`bitcast_u32`: 32-bit integer bits read as f32."""
+    x = torch.as_tensor(x)
+    if x.element_size() != 4:
+        raise TypeError(f"bitcast_f32 needs 32-bit elements, got {x.dtype}")
+    return x.view(torch.float32)
+
+
 class VertexCtx:
     """Per-vertex inputs of a vertex function (WGSL @builtin/@location
     inputs plus bind groups). Under ``vmap``: ``vertex_index`` is a
@@ -94,6 +110,16 @@ class VertexCtx:
 
     def binding(self, location: int):
         return self._bindings[location][self.instance_id]
+
+    def binding_at(self, location: int, index):
+        """``binding(location)[index]`` as ONE gather from the stacked
+        array. Under vmap, ``binding(location)[index]`` would first
+        gather this instance's whole row for every vertex."""
+        return self._bindings[location][self.instance_id, index]
+
+    def binding_stacked(self, location: int):
+        """The stacked [I, ...] array of binding ``location``."""
+        return self._bindings[location]
 
 
 class FragmentCtx:

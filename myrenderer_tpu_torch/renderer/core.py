@@ -139,13 +139,22 @@ class Renderer:
     clock, adopted window, object registries, and the torch ``device``
     every frame runs on.
 
+    ``raster_backend``: ``"auto"`` (the JAX package's ``"pallas"``)
+    rasterizes with exact binning and K1, which runs as a CUDA kernel on CUDA tensors and as its plain version
+    on CPU tensors; ``"oracle"`` takes the full-frame oracle
+    (``ops/raster_ref.py``). Unlike the JAX package, whose ``"auto"``
+    picks the oracle on the CPU, ``"auto"`` is the tile path on every
+    device.
+
     Transform products must stay full fp32 on the card, so TF32 is
     switched off for matmuls and cuDNN when a renderer starts."""
 
     MAX_COPIES = 4
 
-    def __init__(self, core: Optional[Core] = None, device="cpu"):
+    def __init__(self, core: Optional[Core] = None, device="cpu",
+                 raster_backend: str = "auto"):
         self.device = resolve_device(device)
+        self.raster_backend = raster_backend
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         self.core = core or Core(fixed_timestep=1.0 / 60.0)
@@ -171,6 +180,11 @@ class Renderer:
         # triangle id in Draw.last_winners (the exact decision surface
         # for parity checks).
         self.debug_winner = False
+
+        # When True, Draw.end fills frame_stats with per-frame counters
+        # (no device sync).
+        self.collect_stats = False
+        self.frame_stats: dict = {}
 
     def adopt_window(self, window: Window) -> None:
         """Bind the renderer to a window; its framebuffer moves to the

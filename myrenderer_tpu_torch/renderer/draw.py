@@ -1,11 +1,11 @@
 """Draw: frame composition and the frame program (torch).
 
-Port of ``myrenderer_tpu/renderer/draw.py``, merged path. Mirrors
+Port of ``myrenderer_tpu/renderer/draw.py``. Mirrors
 ``Renderer/Draw.zig``'s API (begin / clear / draw_surface / end). ``end``
 runs one eager frame over device tensors: scene transform composition,
-culling, the vertex stage, per-batch eye-plane clip + setup + pack, ONE
-raster pass over every surface (K1 on the card), and shading; then it
-swaps the window's framebuffer.
+culling, the vertex stage, per-batch eye-plane clip + setup, raster
+passes (K1 on the card) and shading; then it swaps the window's
+framebuffer.
 
 The scene graph is flattened to a node table with per-depth level lists,
 and each surface's draw items (pre-order walk, ``SceneNode.zig:119-128``)
@@ -13,33 +13,52 @@ are grouped into batches of consecutive items sharing a pipeline. The
 plan is cached and rebuilt only when ``renderer.scene_version`` moves;
 transforms and bindings are read anew every frame.
 
-Merged pass: surface s of S gets the depth bias 2*(S-1-s), so a covered
-later surface beats every earlier one at each pixel (the clear-then-load
-composition of ``Draw.zig:23-27``) while depth order within a surface is
-unchanged. Ids are global submission ranks: each batch takes its T
-triangles plus ``2 * CLIP_CAPACITY`` slots for clipped eye-plane
-straddlers, the reference's layout, so winner ids compare equal.
+Merged pass (tile backend, no surface after the first clears, every
+pipeline writes depth): ONE raster pass over every surface. Surface s of
+S gets the depth bias 2*(S-1-s), so a covered later surface beats every
+earlier one at each pixel (the clear-then-load composition of
+``Draw.zig:23-27``) while depth order within a surface is unchanged.
+Ids are global submission ranks: each batch takes its T triangles plus
+``2 * CLIP_CAPACITY * clip_scale`` slots for clipped eye-plane
+straddlers, the reference's layout, so winner ids compare equal. Unlike
+the reference, a frame of one batch takes this path too; with S = 1 it
+gives the reference's sequential ids and depths.
 
-Not ported yet: the sequential path the reference takes when a later
-surface clears or a pipeline does not write depth (ROADMAP queue 1,
-item 1). Such a frame raises NotImplementedError.
+Sequential path (any other frame, and every frame of the oracle
+backend): per surface, clear if flagged and start depth at 1.0; per
+batch, one raster pass with batch-local ids against the surface's
+running depth, kept only when the pipeline writes depth.
+
+Clip capacity ladder: when a batch's straddlers outgrow
+``CLIP_CAPACITY * clip_scale``, the scale (sticky per Draw) grows x4 and
+the frame renders again, up to ``CLIP_SCALE_MAX`` as in the reference;
+past that the frame raises.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..ops import raster
+from ..ops import raster, raster_ref
 from ..ops import raster_common as rc
 from ..ops import vertex_stage as vs
 from .pipeline import Pipeline
 
-# eye-plane straddlers clipped per batch (the demo orbit peaks at 72)
+# eye-plane straddlers clipped per batch at clip scale 1 (the demo orbit
+# peaks at 72)
 CLIP_CAPACITY = 128
+
+# the clip scale grows x4 from 1 up to this, as the reference's does
+CLIP_SCALE_MAX = 256
+
+# Renderer.raster_backend -> the backend a frame runs: "tile" (binning
+# + K1 on the card, its plain version on the CPU) or "oracle"
+BACKENDS = {"auto": "tile", "oracle": "oracle"}
 
 # frame plans kept per Draw (one per scene version / surface set)
 PLAN_CACHE_SIZE = 8
@@ -69,6 +88,8 @@ class _FramePlan:
     clear_flags: tuple
     width: int
     height: int
+    backend: str = "tile"
+    merged: bool = True
     debug_winner: bool = False
 
 
@@ -161,19 +182,13 @@ def _build_batches(surface):
     return batches
 
 
-def _check_merged(plan: _FramePlan) -> None:
-    """The merged one-pass path needs every surface after the first to
-    load (not clear) and every pipeline to write depth."""
-    if any(plan.clear_flags[1:]):
-        raise NotImplementedError(
-            "a surface after the first clears: that frame needs the "
-            "sequential frame path, not ported yet (ROADMAP queue 1, "
-            "item 1)")
-    if not all(b.pipeline.depth_write
-               for batches in plan.surfaces for b in batches):
-        raise NotImplementedError(
-            "a pipeline with depth_write=False needs the sequential frame "
-            "path, not ported yet (ROADMAP queue 1, item 1)")
+def _mergeable(plan: _FramePlan) -> bool:
+    """The reference's rule for one raster pass over every surface: the
+    tile backend, no surface after the first clears, and every pipeline
+    writes depth (cull modes and fragment programs may differ)."""
+    return (plan.backend == "tile" and not any(plan.clear_flags[1:])
+            and all(b.pipeline.depth_write
+                    for batches in plan.surfaces for b in batches))
 
 
 # --------------------------------------------------------------------------
@@ -251,13 +266,14 @@ def _batch_vertex_products(plan: _FramePlan, args: dict, world, device):
 
 
 def _setup_batch(plan: _FramePlan, tris: rc.Triangles, valid, cull_mode,
-                 z_bias=None, base_index: int = 0):
+                 z_bias=None, base_index: int = 0,
+                 cap: int = CLIP_CAPACITY):
     """Per-batch eye-plane clip + triangle setup + record pack + viewport
-    bbox. Returns (packed f32[T + 2*CLIP_CAPACITY, 32], valid, bbox);
-    the id lane holds global submission ranks from ``base_index``."""
+    bbox. Returns (packed f32[T + 2*cap, 32], valid, bbox); the id lane
+    holds global submission ranks from ``base_index``."""
     W, H = plan.width, plan.height
     app_clip, app_vary, app_valid, _sel = rc.select_straddlers(
-        tris.clip, tris.vary, valid, CLIP_CAPACITY)
+        tris.clip, tris.vary, valid, cap)
     T = tris.clip.shape[0]
     tc = rc.triangle_setup(tris.clip, tris.vary, valid, W, H, cull_mode,
                            z_bias=z_bias, planar=tris.planar)
@@ -272,17 +288,14 @@ def _setup_batch(plan: _FramePlan, tris: rc.Triangles, valid, cull_mode,
     return packed, torch.cat([tc.valid, tc_app.valid]), bbox
 
 
-def _frame(plan: _FramePlan, args: dict, device):
-    """One merged frame. Returns (fb f32[H, W, 4], winners tuple)."""
+def _merged_pass(plan: _FramePlan, args: dict, products, device, cap):
+    """Every surface in one raster pass. Returns (fb, winner)."""
     fb = args["fb"]
     H, W = plan.height, plan.width
     if plan.clear_flags and plan.clear_flags[0]:
         fb = args["surfaces"][0]["clear"].expand(H, W, 4).clone()
-    world = vs.compose_world_transforms(args["locals"], plan.levels,
-                                        plan.parents)
-    products = _batch_vertex_products(plan, args, world, device)
     if not products:
-        return fb, ()
+        return fb, None
     S = len(plan.surfaces)
     packs, valids, bboxes, ranges = [], [], [], []
     base = 0
@@ -290,7 +303,7 @@ def _frame(plan: _FramePlan, args: dict, device):
         bias = 2.0 * (S - 1 - s_i) if S > 1 else None
         packed, v, bbox = _setup_batch(plan, tris, valid,
                                        b.pipeline.cull_mode, z_bias=bias,
-                                       base_index=base)
+                                       base_index=base, cap=cap)
         packs.append(packed)
         valids.append(v)
         bboxes.append(bbox)
@@ -311,8 +324,60 @@ def _frame(plan: _FramePlan, args: dict, device):
                        device=device)
     _depth, winner, num, den = raster.rasterize_packed(
         packed, valid, bbox, H, W, depth=depth)
-    fb = raster.shade_from_planes_ranges(winner, num, den, fb, ranges)
-    return fb, ((winner,) if plan.debug_winner else ())
+    return raster.shade_from_planes_ranges(winner, num, den, fb,
+                                           ranges), winner
+
+
+def _sequential_passes(plan: _FramePlan, args: dict, products, device,
+                       cap):
+    """One raster pass per batch, surface by surface (the reference's
+    ``draw.py:509-547``). Returns (fb, [winner per pass])."""
+    fb = args["fb"]
+    H, W = plan.height, plan.width
+    products = iter(products)
+    winners = []
+    for s_i, batches in enumerate(plan.surfaces):
+        if plan.clear_flags[s_i]:
+            fb = args["surfaces"][s_i]["clear"].expand(H, W, 4).clone()
+        depth = torch.ones((H, W), dtype=torch.float32, device=device)
+        for b in batches:
+            _s, _b, tris, valid, fctx = next(products)
+            fn, cull = b.pipeline.fragment_fn, b.pipeline.cull_mode
+            if plan.backend == "tile":
+                packed, v, bbox = _setup_batch(plan, tris, valid, cull,
+                                               cap=cap)
+                depth2, winner, num, den = raster.rasterize_packed(
+                    packed, v, bbox, H, W, depth=depth)
+                fb = raster.shade_from_planes_ranges(
+                    winner, num, den, fb, [(0, packed.shape[0], fn, fctx)])
+            else:
+                tris, v = rc.clip_near_capacity(tris, valid, cap)
+                tc = rc.triangle_setup(tris.clip, tris.vary, v, W, H, cull,
+                                       planar=tris.planar, oracle=True)
+                depth2, winner = raster_ref.rasterize_visibility(
+                    tc, H, W, depth=depth)
+                fb = raster_ref.shade(tc, winner, fb, fn, ctx=fctx)
+            winners.append(winner)
+            # a depth_write=False batch still tests its triangles against
+            # each other (the documented deviation, pipeline.py)
+            if b.pipeline.depth_write:
+                depth = depth2
+    return fb, winners
+
+
+def _frame(plan: _FramePlan, args: dict, device, clip_scale: int):
+    """One frame. Returns (fb f32[H, W, 4], winners tuple: one winner
+    buffer per raster pass when ``plan.debug_winner``)."""
+    world = vs.compose_world_transforms(args["locals"], plan.levels,
+                                        plan.parents)
+    products = _batch_vertex_products(plan, args, world, device)
+    cap = CLIP_CAPACITY * clip_scale
+    if plan.merged:
+        fb, winner = _merged_pass(plan, args, products, device, cap)
+        winners = [] if winner is None else [winner]
+    else:
+        fb, winners = _sequential_passes(plan, args, products, device, cap)
+    return fb, (tuple(winners) if plan.debug_winner else ())
 
 
 # --------------------------------------------------------------------------
@@ -327,6 +392,10 @@ class Draw:
         self._plans: dict = {}
         self._bounds_cache = None
         self._bounds_cache_key = None
+        self._last_end_time = None
+        # straddler capacity multiplier, raised x4 when a batch outgrows
+        # it and never lowered (the reference's sticky big_scale)
+        self.clip_scale = 1
         self.last_winners = ()
         self.id = renderer._register(renderer.draws, self)
 
@@ -366,17 +435,53 @@ class Draw:
             return window.framebuffer
         plan = self._get_plan(window)
         args = self._gather_args(plan, window)
-        fb, winners = _frame(plan, args, rend.device)
+        while True:
+            try:
+                fb, winners = _frame(plan, args, rend.device,
+                                     self.clip_scale)
+                break
+            except rc.ClipOverflow:
+                if self.clip_scale >= CLIP_SCALE_MAX:
+                    raise
+                self.clip_scale *= 4
         self.last_winners = winners
         window.framebuffer = fb
+        if rend.collect_stats:
+            now = time.perf_counter()
+            last, self._last_end_time = self._last_end_time, now
+            batches = [b for s in plan.surfaces for b in s]
+            rend.frame_stats = {
+                "frame": rend.frame_counter,
+                "surfaces": len(plan.surfaces),
+                "batches": len(batches),
+                "triangles_submitted": sum(b.tri_count for b in batches),
+                "ms_since_last_end": (None if last is None
+                                      else (now - last) * 1000.0),
+                "backend": plan.backend,
+                # straddler slots per batch are 2 * CLIP_CAPACITY * this
+                "clip_scale": self.clip_scale,
+                # one raster pass for the whole frame (a frame of one
+                # batch counts, unlike the reference's flag)
+                "merged": plan.merged,
+                "fragment_programs": len({b.pipeline.fragment_fn
+                                          for b in batches}),
+            }
         return fb
+
+    def _resolve_backend(self) -> str:
+        name = self.renderer.raster_backend
+        if name not in BACKENDS:
+            raise ValueError(f"unknown raster backend {name!r}; expected "
+                             f"one of {sorted(BACKENDS)}")
+        return BACKENDS[name]
 
     def _get_plan(self, window) -> _FramePlan:
         rend = self.renderer
+        backend = self._resolve_backend()
         key = (rend.scene_version, window.id,
                tuple(s.id for s, _ in self._items),
                tuple(c is not None for _, c in self._items),
-               window.width, window.height, rend.debug_winner)
+               window.width, window.height, backend, rend.debug_winner)
         plan = self._plans.get(key)
         if plan is not None:
             return plan
@@ -390,9 +495,9 @@ class Draw:
         plan = _FramePlan(
             parents=parents, levels=levels, surfaces=surfaces,
             clear_flags=tuple(c is not None for _, c in self._items),
-            width=window.width, height=window.height,
+            width=window.width, height=window.height, backend=backend,
             debug_winner=rend.debug_winner)
-        _check_merged(plan)
+        plan.merged = _mergeable(plan)
         if len(self._plans) >= PLAN_CACHE_SIZE:
             del self._plans[next(iter(self._plans))]
         self._plans[key] = plan

@@ -13,8 +13,7 @@ A two-parameter fragment function also receives the drawn instance's
 bindings (``FragmentCtx.binding(loc)``) — the fragment-stage resource
 access that makes the texture_view / texture_sampler binding kinds
 (``Pipeline.zig:34-55``; in WebGPU these are fragment-stage resources)
-usable per-PIXEL, e.g. UV texture sampling (the JAX package's
-``ops/sampling.py``, not ported yet).
+usable per-PIXEL, e.g. UV texture sampling (``ops/sampling.py``).
 The default fragment function is the reference's pass-through color
 shader (``Pipeline.zig:12-32``). Fixed raster state defaults match
 ``Pipeline.zig:145-154``: triangle lists, clockwise front faces, back

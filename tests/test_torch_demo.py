@@ -120,19 +120,40 @@ def test_state_from_numpy_checks_structure(frames_jax):
         state_from_numpy(app.renderer, state)
 
 
-def test_sequential_path_is_not_ported():
-    """A later surface that clears needs the sequential frame path,
-    which raises instead of rendering something else."""
-    app = DemoApp(width=32, height=32, device="cpu")
-    extra = Surface.create_window_scene(app.renderer, app.window,
-                                        app.base_2d_node)
-    extra.set_perspective(math3d.projection_2d(
+def later_surface_frame(app, draw_cls, surface_cls, math3d_mod):
+    """Draw the demo's terrain, then a later surface over the 2D root
+    that clears first: the sequential frame path. Returns (framebuffer,
+    winners per pass) as numpy."""
+    app.renderer.debug_winner = True
+    extra = surface_cls.create_window_scene(app.renderer, app.window,
+                                            app.base_2d_node)
+    extra.set_perspective(math3d_mod.projection_2d(
         left=0.0, right=200.0, bottom=200.0, top=0.0, near=0.1, far=200.0))
-    draw = Draw.create(app.renderer)
+    draw = draw_cls.create(app.renderer)
     draw.begin()
     draw.clear(CLEAR_COLOR)
     draw.draw_surface(app.surface3d)
     draw.clear((0.0, 0.0, 0.0, 1.0))
     draw.draw_surface(extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        draw.end()
+    draw.end()
+    return (app.window.read_pixels(as_uint8=False),
+            [np.asarray(w) for w in draw.last_winners])
+
+
+def test_sequential_frame_matches_jax():
+    """A later surface that clears takes the sequential frame path (one
+    raster pass per batch): winners of every pass exact and the
+    framebuffer bit-equal against the JAX package (pallas backend)."""
+    from myrenderer_tpu import math3d as jmath3d
+    from myrenderer_tpu.renderer import Draw as JDraw, Surface as JSurface
+    jfb, jwin = later_surface_frame(
+        JaxDemoApp(width=32, height=32, backend="pallas"), JDraw, JSurface,
+        jmath3d)
+    tfb, twin = later_surface_frame(DemoApp(width=32, height=32,
+                                            device="cpu"),
+                                    Draw, Surface, math3d)
+    assert len(twin) == len(jwin) == 2
+    for j, t in zip(jwin, twin):
+        np.testing.assert_array_equal(j, t)
+    assert int((twin[1] >= 0).sum()) > 0
+    np.testing.assert_array_equal(jfb.view(np.int32), tfb.view(np.int32))

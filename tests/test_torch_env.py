@@ -19,12 +19,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "myrenderer_tpu_torch",
     "myrenderer_tpu_torch.app.demo",
+    "myrenderer_tpu_torch.app.stress",
     "myrenderer_tpu_torch.content",
     "myrenderer_tpu_torch.geometry",
+    "myrenderer_tpu_torch.geometry.device_tri",
     "myrenderer_tpu_torch.ops",
+    "myrenderer_tpu_torch.ops.raster_ref",
+    "myrenderer_tpu_torch.ops.sampling",
     "myrenderer_tpu_torch.renderer",
     "myrenderer_tpu_torch.state",
     "myrenderer_tpu_torch.utils.png",
+    "myrenderer_tpu_torch.utils.profiling",
 ]
 
 

@@ -201,3 +201,68 @@ def test_demo_frame1_batches(demo_batches):
             assert_bits_equal(a, c)
         base += tpacked.shape[0]
     assert base == 20000 + 256 + 7 + 256
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_clip_near_capacity(planar):
+    """The oracle's clip stage: the appendee block concatenated after
+    the batch in array order (a permuted producer's ids dropped, as the
+    JAX package's planar concat drops them)."""
+    n = 150
+    clip, vary = random_triangles(n, 11, w_range=(-1.0, 3.0))
+    valid = np.random.default_rng(12).uniform(size=n) < 0.9
+    ids = np.random.default_rng(13).permutation(n).astype(np.int32)
+
+    def f(c, v, m, i):
+        tri = c
+        if planar:
+            tri = jrc.PlanarTris(
+                tuple(tuple(c[:, k, ch] for ch in range(4))
+                      for k in range(3)),
+                tuple(tuple(v[:, k, ch] for ch in range(4))
+                      for k in range(3)), i)
+        out, ov, om, _zb, _cc, ovf = jrc.clip_near_capacity(tri, v, m, 128)
+        return (out.interleaved() if planar else (out, ov)), om, ovf
+
+    (jc, jv), jm, jovf = jax.jit(f)(clip, vary, valid, ids)
+    tris, tm = trc.clip_near_capacity(
+        trc.Triangles(torch.from_numpy(clip), torch.from_numpy(vary),
+                      torch.from_numpy(ids) if planar else None, planar),
+        torch.from_numpy(valid), 128)
+    assert not bool(jovf)
+    assert_bits_equal(jc, tris.clip)
+    assert_bits_equal(jv, tris.vary)
+    assert_bits_equal(jm, tm)
+    assert tris.ids is None and tris.planar == planar
+    assert tris.clip.shape[0] == n + 256 and bool(tm[n:].any())
+
+
+def test_pixel_grids_depth_test_and_resolve():
+    H, W = 12, 20
+    jpx, jpy = jrc.pixel_grids(H, W)
+    tpx, tpy = trc.pixel_grids(H, W)
+    assert_bits_equal(jpx, tpx)
+    assert_bits_equal(jpy, tpy)
+    rng = np.random.default_rng(14)
+    cov = rng.uniform(size=(H, W)) < 0.5
+    z = rng.uniform(0, 1, (H, W)).astype(np.float32)
+    depth = rng.uniform(0, 1, (H, W)).astype(np.float32)
+    winner = rng.integers(-1, 5, (H, W)).astype(np.int32)
+    jd, jw = jrc.depth_test_update(cov, z, depth, winner, 7)
+    td, tw = trc.depth_test_update(*(torch.from_numpy(a) for a in
+                                     (cov, z, depth, winner)), 7)
+    assert_bits_equal(jd, td)
+    assert_bits_equal(jw, tw)
+    # resolve of random winners, as the oracle's full-frame graph runs it
+    clip, vary = random_triangles(40, 15)
+    m = np.ones(40, bool)
+    win = rng.integers(-1, 40, (H, W)).astype(np.int32)
+    jv, jcov = jax.jit(lambda c, v, m, w: jrc.resolve_varyings(
+        jrc.triangle_setup(c, v, m, W, H), w,
+        *jrc.pixel_grids(H, W)))(clip, vary, m, win)
+    tc = trc.triangle_setup(torch.from_numpy(clip), torch.from_numpy(vary),
+                            torch.from_numpy(m), W, H, oracle=True)
+    tv, tcov = trc.resolve_varyings(tc, torch.from_numpy(win),
+                                    *trc.pixel_grids(H, W))
+    assert_bits_equal(jcov, tcov)
+    assert_bits_equal(np.asarray(jv)[win >= 0], tv.numpy()[win >= 0])
