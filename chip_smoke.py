@@ -8,15 +8,21 @@ at the first failed phase:
 1. environment: torch version, card name and power limit;
 2. build: K1 (csrc/raster_tile.cu) with nvcc, timed;
 3. K1 against its plain PyTorch version on the card: random triangle
-   sets (with duplicated triangles for depth ties) and the 1920x1080
-   demo's frame-1 records; winners exact, depth bit-exact, the five
-   planes bit-exact (0 ulp). The plain version on the card is also held
-   bit for bit against the same frame rendered on the CPU;
+   sets (with duplicated triangles for depth ties), a crowded tile (1,200
+   small triangles and 400 duplicates in one tile: 13 chunks of K1's
+   ring, ties across chunk borders), a ragged 47x161 frame, a set stored
+   last record first (depth ties go to later records), and the
+   1920x1080 demo's frame-1 records; winners exact, depth bit-exact, the
+   five planes bit-exact (0 ulp). The plain version on the card is also
+   held bit for bit against the same frame rendered on the CPU. Per-tile
+   record counts (mean, p50, p99, max, empty tiles) of each frame-1
+   shape;
 4. goldens through K1: DemoApp(128, 128) frames 1 and 31 against
    tests/goldens (max diff <= 1, > 99.9 % of values exact);
 5. the slice: DemoApp(1920, 1080) for 1 warm-up plus 60 timed frames,
    exactly one K1 launch per frame, ms/frame beside the plain-version
-   path's;
+   path's; K1 alone at the frame-1 shapes beside its plain version and
+   its bound;
 6. the stress scene: StressApp at full width (3840x2160, terrain 708
    plus 10,000 instanced markers: 1,012,528 triangles, two batches, one
    merged pass) for 1 warm-up plus 20 timed frames, exactly one K1
@@ -24,15 +30,30 @@ at the first failed phase:
    K1 against its plain version on frame 1's records (winners exact,
    depth and planes 0 ulp); a few frames of the plain-version path, its
    last frame bit-equal to the K1 path's; K1 alone at these shapes
-   beside its plain version; where the frame's time goes (a fence
-   around each layer, and the device's busy share from torch.profiler);
+   beside its plain version and its bound, with every tile emptied (its
+   memory floor) and with every record invalid (its records copied and
+   staged, no list walked); where the frame's time goes
+   (a fence around each layer, and the device's busy share, ops and
+   groups from torch.profiler);
 7. the sequential frame path on the card: a later surface that clears
    and a depth_write=False pipeline, one K1 launch per batch, the
    framebuffer and every pass's winners equal to the CPU's bit for bit;
 8. fragment-stage texture sampling through K1: the textured quad
    against tests/goldens/textured_128.png (the goldens rule);
-9. a JSON line of the kernels, the card line, and the last line
+9. the 7680x4320 demo frame 1 through K1 (one launch), K1 against its
+   plain version on its records, K1 alone beside its plain version and
+   its bound;
+10. a JSON line of the kernels, the card line, and the last line
    {"ok": true, "device": {...}}.
+
+K1's bound at a shape is the larger of its bytes over 3.35 TB/s (what
+the run's data needs, each once: 64 bytes (lanes 0..15) of each
+referenced record, 64 more (lanes 16..31) of each winning record, the
+index, starts and counts, depth in, the six planes and the winner out)
+and its operations over 67 TFLOP/s (21 fp32 operations for each
+(record, pixel) whose three edge tests pass: the tests a perfect reject
+leaves). K1 is timed back to back (its inputs may stay in the 50 MB L2
+where they fit) and call by call with the L2 flushed before each call.
 
 Imports no JAX. Needs one CUDA card; fails without one.
 """
@@ -70,31 +91,18 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def random_triangles(n, seed, depth_range=(0.1, 0.9), w_range=(0.8, 5.0)):
-    """Random clockwise screen-space triangles lifted to clip space
-    (the JAX package's test generator)."""
-    rng = np.random.default_rng(seed)
-    ndc = rng.uniform(-1.2, 1.2, (n, 3, 2)).astype(np.float32)
-    z = rng.uniform(*depth_range, (n, 3)).astype(np.float32)
-    w = rng.uniform(*w_range, (n, 3)).astype(np.float32)
-    d1 = ndc[:, 1] - ndc[:, 0]
-    d2 = ndc[:, 2] - ndc[:, 0]
-    cross = d1[:, 0] * (-d2[:, 1]) - (-d1[:, 1]) * d2[:, 0]
-    flip = cross < 0
-    ndc[flip] = ndc[flip][:, ::-1]
-    clip = np.concatenate([ndc * w[..., None], (z * w)[..., None],
-                           w[..., None]], axis=-1)
-    vary = rng.uniform(0, 1, (n, 3, 4)).astype(np.float32)
-    return clip, vary
-
-
-def bin_random(n, seed, H, W, dup, dev):
+def bin_random(n, seed, H, W, dup, dev, box=None, reverse=False):
     """K1 inputs for a random set: setup, pack (ids = array ranks),
     exact binning. ``dup`` appends copies of the first triangles, whose
-    depth ties go to the lowest id."""
+    depth ties go to the lowest id; ``box`` crowds the triangles into
+    one tile; ``reverse`` stores the records last first, so a tie goes
+    to the record that comes later in a tile."""
     from myrenderer_tpu_torch.ops import raster
     from myrenderer_tpu_torch.ops import raster_common as rc
-    clip, vary = random_triangles(n, seed)
+    from myrenderer_tpu_torch.utils.trisets import (crowded_triangles,
+                                                    random_triangles)
+    clip, vary = (random_triangles(n, seed) if box is None
+                  else crowded_triangles(n, seed, H, W, box))
     if dup:
         clip = np.concatenate([clip, clip[:dup]])
         vary = np.concatenate([vary, vary[:dup][..., ::-1].copy()])
@@ -104,10 +112,13 @@ def bin_random(n, seed, H, W, dup, dev):
     tc = rc.triangle_setup(clip_t, vary_t, valid, W, H, "back")
     packed = rc.pack_coeffs_full(tc)
     bbox = raster.viewport_bbox(clip_t, W, H)
-    stream, starts, counts = raster.bin_packed(packed, tc.valid, bbox, H,
-                                               W)
+    valid = tc.valid
+    if reverse:
+        packed, valid = packed.flip(0), valid.flip(0)
+        bbox = tuple(b.flip(0) for b in bbox)
+    index, starts, counts = raster.bin_packed(packed, valid, bbox, H, W)
     depth = torch.ones((H, W), dtype=torch.float32, device=dev)
-    return stream, starts, counts, depth
+    return packed, index, starts, counts, depth
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -120,22 +131,137 @@ def compare_k1(inputs, label):
     """K1 against the plain version on the same card inputs. Returns
     the max abs difference over the fused planes."""
     from myrenderer_tpu_torch.ops import raster_cuda as rk
-    stream, starts, counts, depth = inputs
-    fused, winner = rk.K1(stream, starts, counts, depth)
-    rfused, rwinner = rk.rasterize_tiles_reference(stream, starts, counts,
-                                                   depth)
+    fused, winner = rk.K1(*inputs)
+    rfused, rwinner = rk.rasterize_tiles_reference(*inputs)
     torch.cuda.synchronize()
     bad_w = int((winner != rwinner).sum())
     depth_ulp = ulps(fused[0], rfused[0])
     plane_ulp = ulps(fused[1:], rfused[1:])
     err = float((fused - rfused).abs().max()) if fused.numel() else 0.0
-    print(f"  {label}: stream rows {stream.shape[0]}, covered "
+    print(f"  {label}: {inputs[0].shape[0]} records, {inputs[1].shape[0]} "
+          f"(tile, record) pairs, covered "
           f"{int((winner >= 0).sum())}, winner mismatches {bad_w}, depth "
           f"ulps {depth_ulp}, plane ulps {plane_ulp}, max abs {err}")
     if bad_w or depth_ulp or plane_ulp:
         raise AssertionError(
             f"K1 disagrees with its plain version ({label})")
     return err
+
+
+def tile_stats(inputs, label):
+    """Per-tile record counts of a K1 input: how even the CTAs' work is."""
+    counts = inputs[3].float()
+    q = torch.quantile(counts, torch.tensor([0.5, 0.99], device=counts.device))
+    stats = {"tiles": counts.numel(), "mean": float(counts.mean()),
+             "p50": float(q[0]), "p99": float(q[1]),
+             "max": int(counts.max()), "empty": int((counts == 0).sum())}
+    print(f"  tile records {label}: {stats}")
+    return stats
+
+
+def edge_hits(inputs) -> int:
+    """(record, pixel) tests of a K1 input whose three edge tests pass
+    (every pixel of every (tile, record) pair, in blocks)."""
+    from myrenderer_tpu_torch.ops import raster_common as rc
+    from myrenderer_tpu_torch.ops import raster_cuda as rk
+    packed, index, starts, counts, depth = inputs
+    H, W = depth.shape
+    dev = depth.device
+    ntx = -(-W // rk.TILE_W)
+    tile_of = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=dev), counts.long())
+    lx = torch.arange(rk.TILE_W, device=dev).repeat(rk.TILE_H)
+    ly = torch.arange(rk.TILE_H, device=dev).repeat_interleave(rk.TILE_W)
+    total = 0
+    for b0 in range(0, index.shape[0], 8192):
+        t = tile_of[b0:b0 + 8192]
+        rec = packed[index[b0:b0 + 8192].long()]
+        x = (t % ntx * rk.TILE_W)[:, None] + lx
+        y = (t // ntx * rk.TILE_H)[:, None] + ly
+        px, py = x.float() + 0.5, y.float() + 0.5
+        lane = [rec[:, k, None] for k in range(9)]
+        hit = (x < W) & (y < H)
+        for e in range(3):
+            a, b, c = lane[3 * e:3 * e + 3]
+            th = torch.where(rc.edge_is_top_left(a, b), -rc.TL_EPS, -0.0)
+            hit &= rc.edge_eval(a, b, c, px, py) > th
+        total += int(hit.sum())
+    return total
+
+
+def k1_bound(inputs, winner, label):
+    """K1's bound at these inputs: (ms, "bytes" or "operations"). The
+    bytes are what this run's data needs, each once: lanes 0..15 (64
+    bytes) of every referenced record, lanes 16..31 (64 bytes: id and
+    varying planes) of every winning record, the index, starts, counts,
+    depth in, and the six planes and the winner out. The ids that exact
+    depth ties read are left out, so the bound is if anything low."""
+    packed, index, starts, counts, depth = inputs
+    H, W = depth.shape
+    rows = torch.unique(index).long()
+    records = int(rows.numel())
+    won = int(torch.unique(winner[winner >= 0]).numel())
+    # with one id per referenced record, the winning ids count the
+    # winning records; otherwise they are a lower bound on them
+    ids_unique = int(torch.unique(packed[rows, 16]).numel()) == records
+    nbytes = (records * 64 + won * 64 + index.numel() * 4
+              + 2 * counts.numel() * 4 + H * W * 4 + 7 * H * W * 4)
+    from myrenderer_tpu_torch.ops import raster_cuda as rk
+    hits = edge_hits(inputs)
+    ms_bytes = nbytes / 3.35e12 * 1e3
+    ms_ops = 21 * hits / 67e12 * 1e3
+    print(f"  bound {label}: {nbytes} bytes ({records} referenced records, "
+          f"{won} winning ids, ids unique per record: {ids_unique}) -> "
+          f"{ms_bytes:.4f} ms; {hits} passing edge tests of "
+          f"{index.numel() * rk.TILE_H * rk.TILE_W} -> {ms_ops:.4f} ms")
+    return (ms_bytes, "bytes") if ms_bytes >= ms_ops else (ms_ops,
+                                                            "operations")
+
+
+def time_cold(fn, n: int, flush) -> float:
+    """Median over ``n`` calls of each call's own device time (CUDA
+    events around it), a write of ``flush`` before each call evicting the
+    card's 50 MB L2 (and keeping the card busy while the call is
+    queued)."""
+    times = []
+    for _ in range(n):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        times.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in times]))
+
+
+def time_k1(inputs, n_k1, n_plain, label, card, flush):
+    """K1 alone beside its plain version (plain, K1, K1, plain), then K1
+    call by call with the L2 flushed; the timing launches are taken back
+    out of K1's count."""
+    from myrenderer_tpu_torch.ops import raster_cuda as rk
+    p1 = time_call(lambda: rk.rasterize_tiles_reference(*inputs), n_plain)
+    launches = rk.K1.launches
+    k_a = time_call(lambda: rk.K1(*inputs), n_k1)
+    k_b = time_call(lambda: rk.K1(*inputs), n_k1)
+    cold = time_cold(lambda: rk.K1(*inputs), n_k1, flush)
+    _, winner = rk.K1(*inputs)
+    rk.K1.launches = launches
+    p2 = time_call(lambda: rk.rasterize_tiles_reference(*inputs), n_plain)
+    k1_ms, plain_ms = min(k_a, k_b), min(p1, p2)
+    bound_ms, bound_by = k1_bound(inputs, winner, label)
+    print(f"  K1 at {label} ({inputs[1].shape[0]} pairs, "
+          f"{inputs[0].shape[0]} records): {k1_ms:.4f} ms (runs {k_a:.4f}, "
+          f"{k_b:.4f}); bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100.0 * bound_ms / k1_ms:.1f} % of it; call by call with the "
+          f"L2 flushed (median of {n_k1}): {cold:.4f} ms "
+          f"({100.0 * bound_ms / cold:.1f} % of the bound); plain version "
+          f"{plain_ms:.3f} ms (runs {p1:.3f}, "
+          f"{p2:.3f}); card: {card}")
+    return {"ms": k1_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "pairs": int(inputs[1].shape[0]),
+            "cold_ms": cold}
 
 
 @contextlib.contextmanager
@@ -145,9 +271,9 @@ def capture_k1_inputs(store: list, packed_rows: list = None):
     from myrenderer_tpu_torch.ops import raster
     orig, orig_bin = raster.rasterize_tiles, raster.bin_packed
 
-    def wrapped(stream, starts, counts, depth, **kw):
-        store.append((stream, starts, counts, depth))
-        return orig(stream, starts, counts, depth, **kw)
+    def wrapped(*inputs, **kw):
+        store.append(inputs)
+        return orig(*inputs, **kw)
 
     def wrapped_bin(packed, *args):
         if packed_rows is not None:
@@ -170,8 +296,7 @@ def plain_k1():
     from myrenderer_tpu_torch.ops import raster, raster_cuda
     orig = raster.rasterize_tiles
     raster.rasterize_tiles = (
-        lambda stream, starts, counts, depth, **kw:
-        raster_cuda.rasterize_tiles_reference(stream, starts, counts, depth))
+        lambda *inputs, **kw: raster_cuda.rasterize_tiles_reference(*inputs))
     try:
         yield
     finally:
@@ -397,6 +522,15 @@ def main() -> int:
                                  (200, 4, (128, 128), 100)):
         compare_k1(bin_random(n, seed, H, W, dup, dev),
                    f"random n={n} dup={dup} {H}x{W}")
+    crowded = bin_random(1200, 5, 64, 64, 400, dev, box=(16, 16))
+    if int(crowded[3].max()) < 1000:
+        raise AssertionError("the crowded set is not crowded")
+    tile_stats(crowded, "crowded 64x64")
+    compare_k1(crowded, "crowded tile 64x64 n=1200 dup=400")
+    compare_k1(bin_random(120, 6, 47, 161, 20, dev), "ragged 47x161 n=120 "
+               "dup=20")
+    compare_k1(bin_random(200, 4, 128, 128, 100, dev, reverse=True),
+               "random n=200 dup=100 128x128, ids falling")
     # the 1080p demo's frame-1 records, on the card and on the CPU
     frames = {}
     for d in ("cuda", "cpu"):
@@ -408,10 +542,9 @@ def main() -> int:
         frames[d] = (app, store[0])
     k1_inputs = frames["cuda"][1]
     max_err = compare_k1(k1_inputs, "demo 1920x1080 frame 1")
-    for name, a, b in (("records", frames["cuda"][1][0],
-                        frames["cpu"][1][0]),
-                       ("starts", frames["cuda"][1][1], frames["cpu"][1][1]),
-                       ("counts", frames["cuda"][1][2], frames["cpu"][1][2])):
+    tile_stats(k1_inputs, "demo 1920x1080 frame 1")
+    for name, a, b in zip(("records", "index", "starts", "counts"),
+                          frames["cuda"][1], frames["cpu"][1]):
         if a.shape != b.shape or not torch.equal(
                 a.cpu().view(torch.int32), b.view(torch.int32)):
             raise AssertionError(f"frame-1 {name} differ between the card "
@@ -469,17 +602,11 @@ def main() -> int:
           f"ms/frame ({plain_ms_a:.3f}, {plain_ms_b:.3f}); card: {card}")
 
     # K1 alone at the frame-1 shapes, beside its plain version
-    # (plain, K1, K1, plain)
-    p1 = time_call(lambda: rk.rasterize_tiles_reference(*k1_inputs), 10)
-    launches = rk.K1.launches
-    k_a = time_call(lambda: rk.K1(*k1_inputs), 200)
-    k_b = time_call(lambda: rk.K1(*k1_inputs), 200)
-    rk.K1.launches = launches        # timing launches are not the path's
-    p2 = time_call(lambda: rk.rasterize_tiles_reference(*k1_inputs), 10)
-    k1_ms, k1_plain_ms = min(k_a, k_b), min(p1, p2)
-    print(f"  K1 at frame-1 shapes ({k1_inputs[0].shape[0]} stream rows): "
-          f"{k1_ms:.4f} ms (runs {k_a:.4f}, {k_b:.4f}); plain version "
-          f"{k1_plain_ms:.3f} ms (runs {p1:.3f}, {p2:.3f}); card: {card}")
+    # 256 MiB written between timed calls flushes the 50 MB L2
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    shapes = {"demo_1080p": time_k1(k1_inputs, 200, 10,
+                                    "demo 1920x1080 frame-1 shapes", card,
+                                    flush)}
 
     phase("6 the stress scene: StressApp 3840x2160")
     from myrenderer_tpu_torch.app.stress import StressApp
@@ -511,10 +638,11 @@ def main() -> int:
         raise AssertionError("the stress frame is not one K1 launch")
     s_inputs = store[0]
     print(f"  frame 1: {packed_rows[0]} packed records, "
-          f"{s_inputs[0].shape[0]} binned stream rows, clip scale "
+          f"{s_inputs[1].shape[0]} binned (tile, record) pairs, clip scale "
           f"{stress.draw.clip_scale}; peak device memory "
           f"{peak / 2**20:.1f} MiB (above {base / 2**20:.1f} MiB held "
           f"before the scene was built)")
+    tile_stats(s_inputs, "stress 3840x2160 frame 1")
     s_err = compare_k1(s_inputs, "stress 3840x2160 frame 1")
     # frames 2 .. 1 + STRESS_PLAIN_FRAMES, kept to hold the plain path to
     for _ in range(STRESS_PLAIN_FRAMES):
@@ -543,18 +671,31 @@ def main() -> int:
           f"{stress_launches} K1 launches; plain-version path: "
           f"{stress_plain_ms:.3f} ms/frame over {STRESS_PLAIN_FRAMES} "
           f"frames, last frame bit-equal to the K1 path's; card: {card}")
-    # K1 alone at the stress frame-1 shapes (plain, K1, K1, plain)
-    p1 = time_call(lambda: rk.rasterize_tiles_reference(*s_inputs), 2)
+    shapes["stress_4k"] = time_k1(s_inputs, 50, 2,
+                                  "stress 3840x2160 frame-1 shapes", card,
+                                  flush)
+    # where K1's time goes here: the same launch with every tile empty (its
+    # memory floor: depth in, the seven planes out), and with every record
+    # invalid (zhi = 0: each record is still copied and staged, and the
+    # reject then drops it, so no list is walked)
+    packed_s, index_s, starts_s, counts_s, depth_s = s_inputs
+    empty = (packed_s, index_s, starts_s, torch.zeros_like(counts_s), depth_s)
+    invalid = packed_s.clone()
+    invalid[:, 15] = 0.0
+    no_walk = (invalid, index_s, starts_s, counts_s, depth_s)
     launches = rk.K1.launches
-    k_a = time_call(lambda: rk.K1(*s_inputs), 50)
-    k_b = time_call(lambda: rk.K1(*s_inputs), 50)
-    rk.K1.launches = launches        # timing launches are not the path's
-    p2 = time_call(lambda: rk.rasterize_tiles_reference(*s_inputs), 2)
-    s_k1_ms, s_plain_ms = min(k_a, k_b), min(p1, p2)
-    print(f"  K1 at stress frame-1 shapes ({s_inputs[0].shape[0]} stream "
-          f"rows, 3840x2160): {s_k1_ms:.4f} ms (runs {k_a:.4f}, {k_b:.4f}); "
-          f"plain version {s_plain_ms:.3f} ms (runs {p1:.3f}, {p2:.3f}); "
-          f"card: {card}")
+    floor_ms = time_call(lambda: rk.K1(*empty), 50)
+    no_walk_ms = time_call(lambda: rk.K1(*no_walk), 50)
+    rk.K1.launches = launches
+    floor_bytes = 8 * depth_s.numel() * 4 + 2 * counts_s.numel() * 4
+    print(f"  K1 with every tile empty at these shapes: {floor_ms:.4f} ms for "
+          f"{floor_bytes} bytes ({floor_bytes / 3.35e9:.4f} ms at 3.35 TB/s); "
+          f"with every record invalid (copied and staged, no list walked): "
+          f"{no_walk_ms:.4f} ms; card: {card}")
+    shapes["stress_4k"]["empty_tiles_ms"] = floor_ms
+    shapes["stress_4k"]["no_walk_ms"] = no_walk_ms
+    del (s_inputs, store, empty, invalid, no_walk, packed_s, index_s,
+         starts_s, counts_s, depth_s)
     # where the frame's time goes: a fence around each layer, then the
     # device's busy share over unfenced frames
     totals = {}
@@ -580,7 +721,9 @@ def main() -> int:
           f"ms/frame ({100.0 * device_ms / wall_ms:.1f} % of the profiled "
           f"wall, {100.0 * device_ms / PROFILE_FRAMES / stress_ms:.1f} % of "
           f"the unprofiled frame), {len(kernels) / PROFILE_FRAMES:.0f} "
-          f"device ops/frame")
+          f"device ops/frame (the design that gathered the records into a "
+          f"[pairs, 32] stream: 8.93-9.12 ms/frame and 1,187 ops/frame on "
+          f"an H100 80GB HBM3 at 700 W)")
     by_name = {}
     for e in kernels:
         t, n = by_name.get(e.name, (0.0, 0))
@@ -590,6 +733,8 @@ def main() -> int:
               f"{n // PROFILE_FRAMES:5d}x  {name[:70]}")
     for group, key in (("torch.cat copies", "CatArrayBatchedCopy"),
                        ("elementwise kernels", "elementwise_kernel"),
+                       ("gathers", "gather"),
+                       ("K1", "raster_tile_kernel"),
                        ("host-to-device copies", "Memcpy HtoD")):
         rows = [v for name, v in by_name.items() if key in name]
         print(f"    group {group}: "
@@ -620,9 +765,30 @@ def main() -> int:
     if tex_launches != 1:
         raise AssertionError("the textured frame did not go through K1")
 
-    phase("9 results")
+    phase("9 the 8K demo frame 1: DemoApp 7680x4320")
+    gc.collect()
+    torch.cuda.empty_cache()
+    app = DemoApp(7680, 4320, device="cuda")
+    store = []
+    rk.K1.launches = 0
+    with capture_k1_inputs(store):
+        app.tick()
+    k8_launches = rk.K1.launches
+    if k8_launches != 1 or len(store) != 1:
+        raise AssertionError("the 8K frame is not one K1 launch")
+    fb = app.window.framebuffer
+    if fb.shape != (4320, 7680, 4) or not bool(torch.isfinite(fb).all()):
+        raise AssertionError("8K framebuffer is not finite f32[4320, 7680, 4]")
+    tile_stats(store[0], "demo 7680x4320 frame 1")
+    k8_err = compare_k1(store[0], "demo 7680x4320 frame 1")
+    shapes["demo_8k"] = time_k1(store[0], 50, 2,
+                                "demo 7680x4320 frame-1 shapes", card, flush)
+    del app, store, fb
+
+    phase("10 results")
     by_path = {"demo_1080p": path_launches, "stress_4k": stress_launches,
-               "sequential": seq_launches, "textured": tex_launches}
+               "sequential": seq_launches, "textured": tex_launches,
+               "demo_8k": k8_launches}
     print(json.dumps({"kernels": [{
         "name": "K1 raster_tile",
         "route": "cuda",
@@ -630,13 +796,17 @@ def main() -> int:
         "replaces": "myrenderer_tpu/ops/raster_pallas.py:659",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": max(max_err, s_err),
-        "ms": k1_ms,
-        "plain_ms": k1_plain_ms,
+        "max_abs_err": max(max_err, s_err, k8_err),
+        # the main path's shapes (the 1080p demo's frame 1); every shape
+        # timed is under "shapes"
+        "ms": shapes["demo_1080p"]["ms"],
+        "plain_ms": shapes["demo_1080p"]["plain_ms"],
+        "bound_ms": shapes["demo_1080p"]["bound_ms"],
+        "bound_by": shapes["demo_1080p"]["bound_by"],
+        "library_ms": None,       # no PyTorch call computes K1's function
+        "shapes": shapes,
         "frame_ms": ms,
         "plain_frame_ms": plain_ms,
-        "stress_ms": s_k1_ms,
-        "stress_plain_ms": s_plain_ms,
         "stress_frame_ms": stress_ms,
         "stress_plain_frame_ms": stress_plain_ms,
         "stress_peak_mib": peak / 2**20,

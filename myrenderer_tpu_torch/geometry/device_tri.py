@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..ops.raster_common import fma
 
 
@@ -88,10 +89,12 @@ def triangulate_indices(points: torch.Tensor, n: int,
     return out
 
 
-def triangulate_device(points, capacity: int = 32, device="cpu"):
+def triangulate_device(points, capacity: int = 32, device="cuda"):
     """List of (x, y) -> flat list of triangle corner points in
     clockwise emit order (``triangulation.triangulate``'s convention),
-    triangulated on ``device``."""
+    triangulated on ``device`` (the card unless the caller asks for the
+    CPU; raises without CUDA, as ``Renderer`` does)."""
+    device = resolve_device(device)
     pts = np.asarray(points, np.float32)
     n = pts.shape[0]
     if n < 3:

@@ -7,13 +7,15 @@ raster pass:
 1. **Binning** (plain torch): each valid triangle's pixel bounding box
    becomes a rect of TILE_H x TILE_W tiles; every live (tile, record)
    pair is enumerated with ``repeat_interleave``, sorted by tile
-   (stable, so records stay in ascending order within a tile), counted
-   with ``bincount`` into CSR ``starts/counts``, and the records are
-   gathered once into a bin-ordered ``[S, 32]`` stream. The sizes are
-   exact (one host sync for the pair count), so there is no stream
-   capacity, no span budget and no shared "big" list. The resolve is
-   order-free, so routing cannot change a pixel.
-2. **K1** (``raster_cuda.rasterize_tiles``): one CTA per tile.
+   (stable, so records stay in ascending order within a tile) and
+   counted with ``bincount`` into CSR ``starts/counts``. The bin order
+   is an index of record rows (4 bytes a pair); the records themselves
+   are not copied. The sizes are exact (one host sync for the pair
+   count), so there is no stream capacity, no span budget and no shared
+   "big" list. The resolve is order-free, so routing cannot change a
+   pixel.
+2. **K1** (``raster_cuda.rasterize_tiles``): one CTA per tile, reading
+   the records through the index.
 3. **Shading** (plain torch): one divide and the fragment programs over
    the dense planes.
 """
@@ -42,10 +44,12 @@ def bin_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
                height: int, width: int):
     """Exact CSR binning of records to the tiles of an H x W frame.
 
-    Returns (stream f32[S, 32], starts i32[NT], counts i32[NT]) with
-    NT = ceil(H / TILE_H) * ceil(W / TILE_W), tiles row-major. A
-    triangle goes to every tile its clipped bounding box touches, as in
-    the reference; triangles whose box misses the frame are dropped."""
+    Returns (index i32[S], starts i32[NT], counts i32[NT]) with
+    NT = ceil(H / TILE_H) * ceil(W / TILE_W), tiles row-major: tile t's
+    records are ``packed[index[starts[t]:starts[t] + counts[t]]]``, in
+    ascending row order. A triangle goes to every tile its clipped
+    bounding box touches, as in the reference; triangles whose box
+    misses the frame are dropped."""
     dev = packed.device
     nty = -(-height // TILE_H)
     ntx = -(-width // TILE_W)
@@ -78,8 +82,8 @@ def bin_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
     tile_sorted, order = torch.sort(tile, stable=True)
     counts = torch.bincount(tile_sorted, minlength=NT)
     starts = torch.cumsum(counts, 0) - counts
-    stream = packed[tri[order]].contiguous()
-    return stream, starts.to(torch.int32), counts.to(torch.int32)
+    index = tri[order].to(torch.int32)
+    return index, starts.to(torch.int32), counts.to(torch.int32)
 
 
 def rasterize_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
@@ -96,9 +100,10 @@ def rasterize_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
     if depth is None:
         depth = torch.ones((height, width), dtype=torch.float32,
                            device=packed.device)
-    stream, starts, counts = bin_packed(packed, valid, bbox, height, width)
-    fused, winner = rasterize_tiles(stream, starts, counts,
-                                    depth.contiguous(), check_segments=False)
+    index, starts, counts = bin_packed(packed, valid, bbox, height, width)
+    fused, winner = rasterize_tiles(packed.contiguous(), index, starts,
+                                    counts, depth.contiguous(),
+                                    check_segments=False)
     return fused[0], winner, fused[2:6], fused[1]
 
 

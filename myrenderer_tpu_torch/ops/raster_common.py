@@ -205,8 +205,18 @@ def triangle_setup(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
                                             z_bias is not None, oracle)
     z_abc = _plane(aa, bb, cc, zs, z_form)
     w_abc = _plane(aa, bb, cc, ws, w_form)
-    en_abc = torch.stack([aa[0] + aa[1] + aa[2], bb[0] + bb[1] + bb[2],
-                          cc[0] + cc[1] + cc[2]], dim=1)
+    en_a0, en_c0 = aa[0], cc[0]
+    if oracle and cull_mode == "none":
+        # The JAX oracle recomputes the varying denominator plane per
+        # pixel, inside the fusion that gathers it for the winners. There
+        # the products vs[1]*ws[2] and us[1]*vs[2] are each shared with
+        # another expression (one node, two uses), so the compiler fuses
+        # the other product of a_0 and of c_0 into the FMA. Only this sum
+        # sees those forms; the edges keep the setup's.
+        en_a0 = fma(-vs[2], ws[1], vs[1] * ws[2]) * sign
+        en_c0 = fma(-us[2], vs[1], us[1] * vs[2]) * sign
+    en_abc = torch.stack([en_a0 + aa[1] + aa[2], bb[0] + bb[1] + bb[2],
+                          en_c0 + cc[1] + cc[2]], dim=1)
     col_abc = torch.stack(
         [_plane(aa, bb, cc, [vpl[k, ch] for k in range(3)], col_form)
          for ch in range(C)], dim=-1)                # [T, 3, C]

@@ -1,8 +1,9 @@
 """K1, the tile rasterizer: its CUDA kernel's loader and wrapper, and
 its plain PyTorch version.
 
-``rasterize_tiles`` takes a bin-ordered record stream and per-tile CSR
-offsets and returns ``(fused f32[6, H, W], winner i32[H, W])``: depth,
+``rasterize_tiles`` takes the packed records, the bin order (``index``:
+record rows, tile after tile) with per-tile CSR offsets, and the incoming
+depth, and returns ``(fused f32[6, H, W], winner i32[H, W])``: depth,
 the varying denominator plane and four varying numerator planes of the
 front-most record at each pixel, and its id (-1 where nothing covers).
 For CUDA tensors it launches ``csrc/raster_tile.cu``; for CPU tensors
@@ -84,8 +85,8 @@ class RasterTileKernel:
         self.build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(path)
         p = ctypes.c_void_p
-        lib.raster_tile_launch.argtypes = [p, p, p, p, p, p, ctypes.c_int,
-                                           ctypes.c_int, p]
+        lib.raster_tile_launch.argtypes = [p, p, p, p, p, p, p,
+                                           ctypes.c_int, ctypes.c_int, p]
         lib.raster_tile_launch.restype = ctypes.c_int
         lib.raster_tile_tile_h.restype = ctypes.c_int
         lib.raster_tile_tile_w.restype = ctypes.c_int
@@ -95,7 +96,7 @@ class RasterTileKernel:
         self.lib = lib
         return lib
 
-    def __call__(self, stream, starts, counts, depth):
+    def __call__(self, packed, index, starts, counts, depth):
         lib = self.build()
         H, W = depth.shape
         fused = torch.empty((6, H, W), dtype=torch.float32,
@@ -105,9 +106,9 @@ class RasterTileKernel:
         with torch.cuda.device(depth.device):
             handle = torch.cuda.current_stream().cuda_stream
             err = lib.raster_tile_launch(
-                stream.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-                depth.data_ptr(), fused.data_ptr(), winner.data_ptr(),
-                H, W, handle)
+                packed.data_ptr(), index.data_ptr(), starts.data_ptr(),
+                counts.data_ptr(), depth.data_ptr(), fused.data_ptr(),
+                winner.data_ptr(), H, W, handle)
         if err != 0:
             raise RuntimeError(f"K1 launch failed: CUDA error {err}")
         self.launches += 1
@@ -117,9 +118,10 @@ class RasterTileKernel:
 K1 = RasterTileKernel()
 
 
-def _check_layout(stream, starts, counts, depth):
+def _check_layout(packed, index, starts, counts, depth):
     dev = depth.device
-    for name, t, dtype in (("stream", stream, torch.float32),
+    for name, t, dtype in (("packed", packed, torch.float32),
+                           ("index", index, torch.int32),
                            ("starts", starts, torch.int32),
                            ("counts", counts, torch.int32),
                            ("depth", depth, torch.float32)):
@@ -131,55 +133,66 @@ def _check_layout(stream, starts, counts, depth):
             raise ValueError(f"{name} must be contiguous")
     H, W = depth.shape
     nt = -(-H // TILE_H) * -(-W // TILE_W)
-    if stream.dim() != 2 or stream.shape[1] != rc.FULL_LANES:
-        raise ValueError(f"stream must be [S, {rc.FULL_LANES}], got "
-                         f"{tuple(stream.shape)}")
+    if packed.dim() != 2 or packed.shape[1] != rc.FULL_LANES:
+        raise ValueError(f"packed must be [R, {rc.FULL_LANES}], got "
+                         f"{tuple(packed.shape)}")
+    if index.dim() != 1:
+        raise ValueError(f"index must be [S], got {tuple(index.shape)}")
     if starts.shape != (nt,) or counts.shape != (nt,):
         raise ValueError(f"starts/counts must be [{nt}] for a {H}x{W} "
                          f"frame of {TILE_H}x{TILE_W} tiles")
-    if dev.type == "cuda" and stream.data_ptr() % 16:
-        raise ValueError("stream must be 16-byte aligned")
+    if dev.type == "cuda" and packed.data_ptr() % 16:
+        raise ValueError("packed must be 16-byte aligned")
 
 
-def _check_segments(stream, starts, counts):
-    # the kernel reads stream rows [starts, starts + counts) unchecked
-    if starts.shape[0] and not bool(
-            (starts >= 0).all() & (counts >= 0).all()
-            & ((starts.long() + counts).max() <= stream.shape[0])):
-        raise ValueError("a tile's segment lies outside the stream")
+def _check_segments(packed, index, starts, counts):
+    # the kernel reads index[starts, starts + counts) and the packed rows
+    # they name unchecked
+    if not starts.shape[0]:
+        return
+    ok = ((starts >= 0).all() & (counts >= 0).all()
+          & ((starts.long() + counts).max() <= index.shape[0]))
+    if index.shape[0]:
+        ok &= (index.min() >= 0) & (index.max() < packed.shape[0])
+    if not bool(ok):
+        raise ValueError("a tile's segment lies outside the index, or an "
+                         "index lies outside the packed records")
 
 
-def rasterize_tiles(stream: torch.Tensor, starts: torch.Tensor,
-                    counts: torch.Tensor, depth: torch.Tensor, *,
-                    check_segments: bool = True):
+def rasterize_tiles(packed: torch.Tensor, index: torch.Tensor,
+                    starts: torch.Tensor, counts: torch.Tensor,
+                    depth: torch.Tensor, *, check_segments: bool = True):
     """K1 over a whole frame of TILE_H x TILE_W tiles, tiles row-major.
 
-    stream f32[S, 32] records in bin order; starts/counts i32[NT] each
-    tile's segment; depth f32[H, W] the incoming depth. Returns (fused
-    f32[6, H, W], winner i32[H, W]). Uncovered pixels keep depth_in,
-    winner -1, den 1 and nums 0. Device, dtype, shape and contiguity are
-    always checked; that every segment lies inside the stream costs a
-    host sync and is skipped with ``check_segments=False`` for segments
-    that ``raster.bin_packed`` made, which tile [0, S) by construction."""
+    packed f32[R, 32] records; index i32[S] record rows in bin order;
+    starts/counts i32[NT] each tile's segment of ``index``; depth
+    f32[H, W] the incoming depth. Returns (fused f32[6, H, W], winner
+    i32[H, W]). Uncovered pixels keep depth_in, winner -1, den 1 and
+    nums 0. Device, dtype, shape and contiguity are always checked; that
+    every segment lies inside ``index`` and every index inside
+    ``packed`` costs a host sync and is skipped with
+    ``check_segments=False`` for the bin order that ``raster.bin_packed``
+    made, which holds both by construction."""
     if depth.device.type not in ("cuda", "cpu"):
         raise ValueError(f"K1 runs on cuda or cpu tensors, not "
                          f"{depth.device}")
-    _check_layout(stream, starts, counts, depth)
+    _check_layout(packed, index, starts, counts, depth)
     if check_segments:
-        _check_segments(stream, starts, counts)
+        _check_segments(packed, index, starts, counts)
     if depth.device.type == "cuda":
-        return K1(stream, starts, counts, depth)
-    return rasterize_tiles_reference(stream, starts, counts, depth)
+        return K1(packed, index, starts, counts, depth)
+    return rasterize_tiles_reference(packed, index, starts, counts, depth)
 
 
-def rasterize_tiles_reference(stream: torch.Tensor, starts: torch.Tensor,
-                              counts: torch.Tensor, depth: torch.Tensor):
+def rasterize_tiles_reference(packed: torch.Tensor, index: torch.Tensor,
+                              starts: torch.Tensor, counts: torch.Tensor,
+                              depth: torch.Tensor):
     """The plain PyTorch version of K1, same arguments and results.
 
     Expands every (tile, record) pair of the CSR segments over the
     tile's pixels, ``_REFERENCE_BLOCK`` pairs at a time, and keeps the
     lexicographic min of (z, id) per pixel, starting from
-    (depth_in, -1), with the stream row that holds it. The winner's
+    (depth_in, -1), with the packed row that holds it. The winner's
     planes are evaluated once at the end."""
     dev = depth.device
     H, W = depth.shape
@@ -191,8 +204,8 @@ def rasterize_tiles_reference(stream: torch.Tensor, starts: torch.Tensor,
         torch.arange(counts.shape[0], device=dev), counts_l,
         output_size=total)
     first = torch.cumsum(counts_l, 0) - counts_l
-    rows = starts.long()[tile_of] + (torch.arange(total, device=dev)
-                                     - first[tile_of])
+    rows = index.long()[starts.long()[tile_of]
+                        + (torch.arange(total, device=dev) - first[tile_of])]
     lx = torch.arange(P, device=dev) % TILE_W
     ly = torch.arange(P, device=dev) // TILE_W
 
@@ -209,7 +222,7 @@ def rasterize_tiles_reference(stream: torch.Tensor, starts: torch.Tensor,
         inside = (x < W) & (y < H)
         px = (x.to(torch.float32) + 0.5)
         py = (y.to(torch.float32) + 0.5)
-        rec = stream[r][:, None, :]                            # [n, 1, 32]
+        rec = packed[r][:, None, :]                            # [n, 1, 32]
         cov, z = rc.coverage_depth(rec, px, py)
         cov = cov & inside
         pix = (y * W + x)[cov]
@@ -237,7 +250,7 @@ def rasterize_tiles_reference(stream: torch.Tensor, starts: torch.Tensor,
     px = xx.to(torch.float32) + 0.5
     py = yy.to(torch.float32) + 0.5
     covered = best_row >= 0
-    wrec = stream[best_row.clamp(min=0)] if stream.shape[0] else \
+    wrec = packed[best_row.clamp(min=0)] if packed.shape[0] else \
         torch.zeros((H * W, rc.FULL_LANES), device=dev)
 
     def plane(k):

@@ -14,17 +14,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-
-def resolve_device(device) -> torch.device:
-    """The torch device a renderer runs on. Raises for a CUDA device
-    when CUDA is absent (nothing falls back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but CUDA is not "
-                           "available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r}")
-    return dev
+from ..device import resolve_device
 
 
 class Window:
@@ -137,7 +127,8 @@ class Core:
 class Renderer:
     """Top-level renderer state (``Renderer/Renderer.zig:21-34``): frame
     clock, adopted window, object registries, and the torch ``device``
-    every frame runs on.
+    every frame runs on: the card unless the caller asks for the CPU
+    (``device="cpu"``); without CUDA the default raises.
 
     ``raster_backend``: ``"auto"`` (the JAX package's ``"pallas"``)
     rasterizes with exact binning and K1, which runs as a CUDA kernel on CUDA tensors and as its plain version
@@ -151,7 +142,7 @@ class Renderer:
 
     MAX_COPIES = 4
 
-    def __init__(self, core: Optional[Core] = None, device="cpu",
+    def __init__(self, core: Optional[Core] = None, device="cuda",
                  raster_backend: str = "auto"):
         self.device = resolve_device(device)
         self.raster_backend = raster_backend

@@ -1,0 +1,48 @@
+"""Triangle sets for K1's checks, made with numpy from a seed: the CPU
+parity tests (``tests/test_torch_*.py``) and ``chip_smoke.py`` on the
+card draw the same sets from here. Imports numpy only."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def random_triangles(n, seed, w_range=(0.8, 5.0), mixed_winding=False):
+    """Random clip-space triangles, clockwise on screen (the JAX
+    package's test generator); ``w_range`` reaching below zero makes
+    eye-plane straddlers, ``mixed_winding`` flips half of them."""
+    rng = np.random.default_rng(seed)
+    ndc = rng.uniform(-1.2, 1.2, (n, 3, 2)).astype(np.float32)
+    z = rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32)
+    w = rng.uniform(*w_range, (n, 3)).astype(np.float32)
+    d1 = ndc[:, 1] - ndc[:, 0]
+    d2 = ndc[:, 2] - ndc[:, 0]
+    flip = d1[:, 0] * (-d2[:, 1]) - (-d1[:, 1]) * d2[:, 0] < 0
+    if mixed_winding:
+        flip ^= rng.uniform(size=n) < 0.5
+    ndc[flip] = ndc[flip][:, ::-1]
+    clip = np.concatenate([ndc * np.abs(w)[..., None], (z * w)[..., None],
+                           w[..., None]], axis=-1)
+    vary = rng.uniform(0, 1, (n, 3, 4)).astype(np.float32)
+    return clip, vary
+
+
+def crowded_triangles(n, seed, H, W, box, w_range=(0.8, 5.0)):
+    """Clockwise triangles of 1-3 pixels whose centres lie in the 16x16
+    pixel box at ``box`` = (x0, y0) of an H x W frame, lifted to clip
+    space: hundreds of records in one tile of K1."""
+    rng = np.random.default_rng(seed)
+    centre = rng.uniform(1.0, 15.0, (n, 1, 2)) + np.asarray(box, float)
+    pix = centre + rng.uniform(-1.5, 1.5, (n, 3, 2))
+    ndc = np.stack([2.0 * pix[..., 0] / W - 1.0,
+                    1.0 - 2.0 * pix[..., 1] / H], -1).astype(np.float32)
+    d1 = ndc[:, 1] - ndc[:, 0]
+    d2 = ndc[:, 2] - ndc[:, 0]
+    flip = d1[:, 0] * (-d2[:, 1]) - (-d1[:, 1]) * d2[:, 0] < 0
+    ndc[flip] = ndc[flip][:, ::-1]
+    z = rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32)
+    w = rng.uniform(*w_range, (n, 3)).astype(np.float32)
+    clip = np.concatenate([ndc * w[..., None], (z * w)[..., None],
+                           w[..., None]], axis=-1)
+    vary = rng.uniform(0, 1, (n, 3, 4)).astype(np.float32)
+    return clip, vary

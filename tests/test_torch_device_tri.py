@@ -36,7 +36,8 @@ def test_indices_match_jax(name, poly):
     got = tdt.triangulate_indices(torch.from_numpy(buf), n, cap)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(want, got.numpy())
-    assert tdt.triangulate_device(poly) == jdt.triangulate_device(poly)
+    assert (tdt.triangulate_device(poly, device="cpu")
+            == jdt.triangulate_device(poly))
 
 
 def test_same_area_as_seidel():
@@ -48,16 +49,17 @@ def test_same_area_as_seidel():
         return 0.5 * (d1[:, 0] * d2[:, 1] - d1[:, 1] * d2[:, 0])
 
     poly = star_polygon(17, 9)
-    dev = area(tdt.triangulate_device(poly))
+    dev = area(tdt.triangulate_device(poly, device="cpu"))
     assert len(dev) == 15 and (dev >= 0).all()
     assert np.isclose(dev.sum(), area(triangulate(poly)).sum(), rtol=1e-5)
 
 
 def test_rejects_bad_inputs():
     with pytest.raises(ValueError, match="at least 3"):
-        tdt.triangulate_device([(0, 0), (1, 1)])
+        tdt.triangulate_device([(0, 0), (1, 1)], device="cpu")
     with pytest.raises(ValueError, match="capacity"):
-        tdt.triangulate_device(star_polygon(33, 0), capacity=32)
+        tdt.triangulate_device(star_polygon(33, 0), capacity=32,
+                               device="cpu")
     with pytest.raises(ValueError, match="2 < n"):
         tdt.triangulate_indices(torch.zeros(32, 2), 2)
 

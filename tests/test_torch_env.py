@@ -9,6 +9,7 @@ import sys
 import pytest
 import torch
 
+from myrenderer_tpu_torch.geometry import triangulate_device
 from myrenderer_tpu_torch.ops import raster_cuda
 from myrenderer_tpu_torch.renderer import Core, Renderer
 
@@ -21,6 +22,7 @@ PORT_MODULES = [
     "myrenderer_tpu_torch.app.demo",
     "myrenderer_tpu_torch.app.stress",
     "myrenderer_tpu_torch.content",
+    "myrenderer_tpu_torch.device",
     "myrenderer_tpu_torch.geometry",
     "myrenderer_tpu_torch.geometry.device_tri",
     "myrenderer_tpu_torch.ops",
@@ -28,8 +30,10 @@ PORT_MODULES = [
     "myrenderer_tpu_torch.ops.sampling",
     "myrenderer_tpu_torch.renderer",
     "myrenderer_tpu_torch.state",
+    "myrenderer_tpu_torch.tools.k1_lab",
     "myrenderer_tpu_torch.utils.png",
     "myrenderer_tpu_torch.utils.profiling",
+    "myrenderer_tpu_torch.utils.trisets",
 ]
 
 
@@ -54,6 +58,19 @@ def test_renderer_cuda_raises_without_cuda():
         Renderer(Core(fixed_timestep=1 / 60), device="cuda")
 
 
+@pytest.mark.parametrize("entry", ["Renderer", "triangulate_device"])
+def test_entry_points_default_to_the_card(entry):
+    """Built without a device, the library's entry points run on the
+    card: without CUDA they raise instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "Renderer":
+            Renderer(Core(fixed_timestep=1 / 60))
+        else:
+            triangulate_device([(0.0, 0.0), (10.0, 0.0), (0.0, 10.0)])
+
+
 def test_renderer_turns_tf32_off():
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
@@ -66,6 +83,7 @@ def _k1_inputs(device):
     H, W = 20, 36
     nt = -(-H // raster_cuda.TILE_H) * -(-W // raster_cuda.TILE_W)
     return (torch.zeros((0, 32), device=device),
+            torch.zeros(0, dtype=torch.int32, device=device),
             torch.zeros(nt, dtype=torch.int32, device=device),
             torch.zeros(nt, dtype=torch.int32, device=device),
             torch.ones((H, W), device=device))
@@ -88,16 +106,25 @@ def test_k1_wrapper_raises_instead_of_falling_back():
 
 
 def test_k1_wrapper_checks_inputs():
-    stream, starts, counts, depth = _k1_inputs("cpu")
+    packed, index, starts, counts, depth = _k1_inputs("cpu")
     with pytest.raises(TypeError):
-        raster_cuda.rasterize_tiles(stream, starts.long(), counts, depth)
-    with pytest.raises(ValueError):
-        raster_cuda.rasterize_tiles(stream, starts[:-1], counts[:-1], depth)
-    with pytest.raises(ValueError):
-        raster_cuda.rasterize_tiles(torch.zeros((0, 16)), starts, counts,
+        raster_cuda.rasterize_tiles(packed, index, starts.long(), counts,
+                                    depth)
+    with pytest.raises(TypeError, match="index"):
+        raster_cuda.rasterize_tiles(packed, index.long(), starts, counts,
                                     depth)
     with pytest.raises(ValueError):
-        raster_cuda.rasterize_tiles(stream, starts, counts, depth.t())
+        raster_cuda.rasterize_tiles(packed, index, starts[:-1], counts[:-1],
+                                    depth)
+    with pytest.raises(ValueError):
+        raster_cuda.rasterize_tiles(torch.zeros((0, 16)), index, starts,
+                                    counts, depth)
+    with pytest.raises(ValueError):
+        raster_cuda.rasterize_tiles(packed, index[None], starts, counts,
+                                    depth)
+    with pytest.raises(ValueError):
+        raster_cuda.rasterize_tiles(packed, index, starts, counts,
+                                    depth.t())
 
 
 def test_k1_cpu_uses_plain_version_and_counts_no_launch():
@@ -111,7 +138,14 @@ def test_k1_cpu_uses_plain_version_and_counts_no_launch():
 
 
 def test_k1_wrapper_rejects_segments_outside_the_stream():
-    stream, starts, counts, depth = _k1_inputs("cpu")
+    """A segment past the end of the index, or an index past the last
+    packed record, raises before anything reads it."""
+    packed, index, starts, counts, depth = _k1_inputs("cpu")
     counts[0] = 1
-    with pytest.raises(ValueError, match="outside the stream"):
-        raster_cuda.rasterize_tiles(stream, starts, counts, depth)
+    with pytest.raises(ValueError, match="outside the index"):
+        raster_cuda.rasterize_tiles(packed, index, starts, counts, depth)
+    packed = torch.zeros((3, 32))
+    for bad in (3, -1):
+        index = torch.tensor([0, bad, 2], dtype=torch.int32)
+        with pytest.raises(ValueError, match="outside the packed"):
+            raster_cuda.rasterize_tiles(packed, index, starts, counts, depth)

@@ -18,8 +18,9 @@ import torch
 
 from myrenderer_tpu.ops import raster_pallas as jrp
 from myrenderer_tpu_torch.ops import raster, raster_cuda
-from test_torch_raster_common import (assert_bits_equal, jax_setup_batch,
-                                      random_triangles)
+from myrenderer_tpu_torch.utils.trisets import (crowded_triangles,
+                                                random_triangles)
+from test_torch_raster_common import assert_bits_equal, jax_setup_batch
 
 torch.set_num_threads(1)
 
@@ -35,16 +36,23 @@ jax_rasterize_packed = jax.jit(
     static_argnames=("height", "width"))
 
 
-def packed_frame(batches, H, W):
+def packed_frame(batches, H, W, reverse=False):
     """Concatenated records of several batches packed as the merged pass
     packs them: batch s of S gets z bias 2*(S-1-s) and global ids from
-    its base. ``batches`` holds (n, seed, dup, w_lo) per batch; ``dup``
-    appends copies of the first triangles (exact depth ties), ``w_lo``
-    < 0 makes eye-plane straddlers."""
+    its base. ``batches`` holds (n, seed, dup, w_lo[, box]) per batch;
+    ``dup`` appends copies of the first triangles (exact depth ties),
+    ``w_lo`` < 0 makes eye-plane straddlers, and ``box`` crowds the
+    batch's small triangles into one tile (:func:`crowded_triangles`).
+    ``reverse`` stores the records last first, so ids fall as rows rise
+    and a depth tie goes to the record that comes later in a tile."""
     S = len(batches)
     parts, base = [], 0
-    for s, (n, seed, dup, w_lo) in enumerate(batches):
-        clip, vary = random_triangles(n, seed, w_range=(w_lo, 5.0))
+    for s, (n, seed, dup, w_lo, *box) in enumerate(batches):
+        if box:
+            clip, vary = crowded_triangles(n, seed, H, W, box[0],
+                                           w_range=(w_lo, 5.0))
+        else:
+            clip, vary = random_triangles(n, seed, w_range=(w_lo, 5.0))
         if dup:
             clip = np.concatenate([clip, clip[:dup]])
             vary = np.concatenate([vary, vary[:dup, :, ::-1]])
@@ -55,6 +63,9 @@ def packed_frame(batches, H, W):
         parts.append((np.asarray(packed), np.asarray(v),
                       [np.asarray(c) for c in bbox]))
         base += packed.shape[0]
+    if reverse:
+        parts = [(p[::-1], v[::-1], [c[::-1] for c in b])
+                 for p, v, b in parts[::-1]]
     pad = ROWS - base
     packed = np.concatenate([p for p, _v, _b in parts]
                             + [np.zeros((pad, 32), np.float32)])
@@ -80,13 +91,19 @@ CASES = {
     "128x128 n200 straddlers": ((128, 128), [(200, 4, 0, -0.5)]),
     "128x128 3 batches": ((128, 128), [(120, 5, 30, -0.5), (60, 6, 0, 0.8),
                                        (9, 7, 3, 0.8)]),
+    "47x161 ragged ties": ((47, 161), [(120, 10, 20, 0.8)]),
+    # 400 + 300 duplicates in one tile: 6 chunks of K1's ring, ties
+    # between records in different chunks
+    "48x160 crowded tile ties": ((48, 160), [(400, 11, 300, 0.8,
+                                              (16, 16))]),
+    "48x160 n200 ties, ids falling": ((48, 160), [(200, 3, 60, 0.8)], True),
 }
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_rasterize_packed_parity(case):
-    (H, W), batches = CASES[case]
-    packed, valid, bbox, depth0 = packed_frame(batches, H, W)
+    (H, W), batches, *reverse = CASES[case]
+    packed, valid, bbox, depth0 = packed_frame(batches, H, W, *reverse)
     depth = np.full((H, W), depth0, np.float32)
     jd, jw, jnum, jden, jovf = jax_rasterize_packed(
         jnp.asarray(packed), jnp.asarray(valid),
@@ -106,17 +123,19 @@ def test_rasterize_packed_parity(case):
 
 def test_bin_packed_is_exact():
     """Every record lands in exactly the tiles its clipped bounding box
-    touches, ascending within a tile, and nowhere else."""
+    touches, ascending within a tile, and nowhere else: each tile's
+    segment of the index names exactly those rows of ``packed``."""
     H, W = 70, 90
     packed, valid, bbox, _d = packed_frame([(80, 8, 0, -0.5)], H, W)
-    stream, starts, counts = raster.bin_packed(
+    index, starts, counts = raster.bin_packed(
         torch.from_numpy(packed), torch.from_numpy(valid),
         tuple(torch.from_numpy(c) for c in bbox), H, W)
+    assert index.dtype == torch.int32
     TH, TW = raster_cuda.TILE_H, raster_cuda.TILE_W
     nty, ntx = -(-H // TH), -(-W // TW)
     ph = nty * TH
-    stream, starts, counts = stream.numpy(), starts.numpy(), counts.numpy()
-    assert starts[0] == 0 and counts.sum() == stream.shape[0]
+    index, starts, counts = index.numpy(), starts.numpy(), counts.numpy()
+    assert starts[0] == 0 and counts.sum() == index.shape[0]
     np.testing.assert_array_equal(starts[1:], np.cumsum(counts)[:-1])
     live = (valid & (bbox[3] >= 0) & (bbox[2] < ph) & (bbox[1] >= 0)
             & (bbox[0] < W))
@@ -128,8 +147,9 @@ def test_bin_packed_is_exact():
         ty, tx = divmod(t, ntx)
         want = np.nonzero(live & (tx0 <= tx) & (tx <= tx1) & (ty0 <= ty)
                           & (ty <= ty1))[0]
-        seg = stream[starts[t]:starts[t] + counts[t]]
-        assert_bits_equal(packed[want], seg)
+        seg = index[starts[t]:starts[t] + counts[t]]
+        np.testing.assert_array_equal(want, seg)
+        assert_bits_equal(packed[want], packed[seg])
 
 
 def test_rasterize_packed_empty():
@@ -154,18 +174,19 @@ def cuda_device():
 def test_k1_matches_plain_version_on_card(case, cuda_device):
     """K1 against its plain version on the card: winners exact, depth
     and planes bit-exact, one launch counted."""
-    (H, W), batches = CASES[case]
-    packed, valid, bbox, depth0 = packed_frame(batches, H, W)
+    (H, W), batches, *reverse = CASES[case]
+    packed, valid, bbox, depth0 = packed_frame(batches, H, W, *reverse)
     dev = cuda_device
-    stream, starts, counts = raster.bin_packed(
-        torch.from_numpy(packed).to(dev), torch.from_numpy(valid).to(dev),
+    packed = torch.from_numpy(packed).to(dev)
+    index, starts, counts = raster.bin_packed(
+        packed, torch.from_numpy(valid).to(dev),
         tuple(torch.from_numpy(c).to(dev) for c in bbox), H, W)
     depth = torch.full((H, W), depth0, device=dev)
     before = raster_cuda.K1.launches
-    fused, winner = raster_cuda.rasterize_tiles(stream, starts, counts,
-                                                depth)
+    fused, winner = raster_cuda.rasterize_tiles(packed, index, starts,
+                                                counts, depth)
     assert raster_cuda.K1.launches == before + 1
     rfused, rwinner = raster_cuda.rasterize_tiles_reference(
-        stream, starts, counts, depth)
+        packed, index, starts, counts, depth)
     assert torch.equal(winner, rwinner)
     assert torch.equal(fused.view(torch.int32), rfused.view(torch.int32))

@@ -18,6 +18,7 @@ from myrenderer_tpu_torch.app.demo import DemoApp
 from myrenderer_tpu_torch.ops import raster_common as trc
 from myrenderer_tpu_torch.ops import vertex_stage as tvs
 from myrenderer_tpu_torch.renderer import draw as tdraw
+from myrenderer_tpu_torch.utils.trisets import random_triangles
 
 torch.set_num_threads(1)
 
@@ -33,25 +34,6 @@ def assert_bits_equal(a, b):
         bad = a != b
     assert not bad.any(), (f"{int(bad.sum())} of {a.size} values differ at "
                            f"{np.argwhere(bad)[:5].tolist()}")
-
-
-def random_triangles(n, seed, w_range=(0.8, 5.0), mixed_winding=False):
-    """Random clip-space triangles (the JAX package's test generator);
-    ``w_range`` reaching below zero makes eye-plane straddlers."""
-    rng = np.random.default_rng(seed)
-    ndc = rng.uniform(-1.2, 1.2, (n, 3, 2)).astype(np.float32)
-    z = rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32)
-    w = rng.uniform(*w_range, (n, 3)).astype(np.float32)
-    d1 = ndc[:, 1] - ndc[:, 0]
-    d2 = ndc[:, 2] - ndc[:, 0]
-    flip = d1[:, 0] * (-d2[:, 1]) - (-d1[:, 1]) * d2[:, 0] < 0
-    if mixed_winding:
-        flip ^= rng.uniform(size=n) < 0.5
-    ndc[flip] = ndc[flip][:, ::-1]
-    clip = np.concatenate([ndc * np.abs(w)[..., None], (z * w)[..., None],
-                           w[..., None]], axis=-1)
-    vary = rng.uniform(0, 1, (n, 3, 4)).astype(np.float32)
-    return clip, vary
 
 
 def jax_setup_batch(clip, vary, valid, width, height, cull_mode="back",

@@ -6,7 +6,7 @@ from a seed: frames where a later surface clears, where a pipeline does
 not write depth, or both. The port's tile backend must give the JAX
 pallas backend's (interpret mode) winners per pass and its framebuffer
 bit for bit; the port's oracle must give the JAX oracle's winners and
-its pixels by the goldens rule, and the same winners as the port's tile
+framebuffer bit for bit, and the same winners as the port's tile
 backend."""
 
 import types
@@ -20,7 +20,7 @@ import myrenderer_tpu as jmr
 import myrenderer_tpu_torch as tmr
 from myrenderer_tpu_torch.ops.vertex_stage import matvec4
 from myrenderer_tpu_torch.renderer import draw as tdraw
-from test_torch_raster_common import random_triangles
+from myrenderer_tpu_torch.utils.trisets import random_triangles
 
 torch.set_num_threads(1)
 
@@ -165,10 +165,13 @@ def test_tile_matches_jax_pallas(scene):
 
 @pytest.mark.parametrize("scene", list(SCENES))
 def test_oracle_matches_jax_oracle(scene):
+    """Winners and the framebuffer bit for bit, cull_mode "none"
+    batches included (their varying denominator plane takes the JAX
+    oracle's own rounding form, ``raster_common.triangle_setup``)."""
     jfb, jwin, _ = render(JAX, "oracle", SCENES[scene])
     tfb, twin, _ = render(TORCH, "oracle", SCENES[scene])
     assert_winners_equal(jwin, twin)
-    assert_goldens_rule(jfb, tfb)
+    np.testing.assert_array_equal(jfb.view(np.int32), tfb.view(np.int32))
 
 
 @pytest.mark.parametrize("scene", list(SCENES))
