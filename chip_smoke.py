@@ -43,7 +43,17 @@ at the first failed phase:
 9. the 7680x4320 demo frame 1 through K1 (one launch), K1 against its
    plain version on its records, K1 alone beside its plain version and
    its bound;
-10. a JSON line of the kernels, the card line, and the last line
+10. row bands on the card: K1 against its plain version at y0 > 0, bit
+   for bit, on the row bands of the 1080p, 4K and 8K frame-1 records
+   and on thin slivers in the last 270-row band of a 7680x4320 frame;
+   DemoApp(1920, 1080) on 4 bands of cuda:0 (frames 1 and 31) and the
+   stress scene on 4 and 8 bands, winners and framebuffers bit-equal to
+   the single-device frames, one K1 launch per band and frame; with
+   more than one card (d), the demo and the stress scene with one band
+   a card, bit-equal and timed beside one device; ms/frame of each beside
+   the single-device frame in turns in the same call, and host syncs
+   per frame by the line that made them;
+11. a JSON line of the kernels, the card line, and the last line
    {"ok": true, "device": {...}}.
 
 K1's bound at a shape is the larger of its bytes over 3.35 TB/s (what
@@ -53,13 +63,16 @@ index, starts and counts, depth in, the six planes and the winner out)
 and its operations over 67 TFLOP/s (21 fp32 operations for each
 (record, pixel) whose three edge tests pass: the tests a perfect reject
 leaves). K1 is timed back to back (its inputs may stay in the 50 MB L2
-where they fit) and call by call with the L2 flushed before each call.
+where they fit), queued behind a spin on the card so that the host's
+launch rate does not count, and call by call with the L2 flushed before
+each call.
 
 Imports no JAX. Needs one CUDA card; fails without one.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -67,6 +80,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -77,6 +91,10 @@ PLAIN_FRAMES = 30     # plain-version path frames, before and after K1's
 STRESS_FRAMES = 20
 STRESS_PLAIN_FRAMES = 3   # plain-version path frames after its warm-up
 PROFILE_FRAMES = 3
+BAND_FRAMES = 10          # demo frames a turn, banded and on one device
+BAND_STRESS_FRAMES = 5    # stress frames a turn, banded and on one device
+BAND_ROUNDS = 3           # turns of each
+SPIN_HZ = 2.0e9           # cycles a second of torch.cuda._sleep (at most)
 
 
 def phase(name: str):
@@ -127,12 +145,13 @@ def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((ai - bi).abs().max()) if a.numel() else 0
 
 
-def compare_k1(inputs, label):
-    """K1 against the plain version on the same card inputs. Returns
-    the max abs difference over the fused planes."""
+def compare_k1(inputs, label, y0=0):
+    """K1 against the plain version on the same card inputs (a band
+    from frame row ``y0``). Returns the max abs difference over the
+    fused planes."""
     from myrenderer_tpu_torch.ops import raster_cuda as rk
-    fused, winner = rk.K1(*inputs)
-    rfused, rwinner = rk.rasterize_tiles_reference(*inputs)
+    fused, winner = rk.K1(*inputs, y0=y0)
+    rfused, rwinner = rk.rasterize_tiles_reference(*inputs, y0=y0)
     torch.cuda.synchronize()
     bad_w = int((winner != rwinner).sum())
     depth_ulp = ulps(fused[0], rfused[0])
@@ -243,8 +262,8 @@ def time_k1(inputs, n_k1, n_plain, label, card, flush):
     from myrenderer_tpu_torch.ops import raster_cuda as rk
     p1 = time_call(lambda: rk.rasterize_tiles_reference(*inputs), n_plain)
     launches = rk.K1.launches
-    k_a = time_call(lambda: rk.K1(*inputs), n_k1)
-    k_b = time_call(lambda: rk.K1(*inputs), n_k1)
+    k_a = time_call(lambda: rk.K1(*inputs), n_k1, head_start=True)
+    k_b = time_call(lambda: rk.K1(*inputs), n_k1, head_start=True)
     cold = time_cold(lambda: rk.K1(*inputs), n_k1, flush)
     _, winner = rk.K1(*inputs)
     rk.K1.launches = launches
@@ -265,28 +284,28 @@ def time_k1(inputs, n_k1, n_plain, label, card, flush):
 
 
 @contextlib.contextmanager
-def capture_k1_inputs(store: list, packed_rows: list = None):
+def capture_k1_inputs(store: list, records: list = None):
     """Record the arguments of every K1 call the frame makes (and, into
-    ``packed_rows``, the packed record count of each raster pass)."""
+    ``records``, the (packed, valid, bbox) of each raster pass)."""
     from myrenderer_tpu_torch.ops import raster
-    orig, orig_bin = raster.rasterize_tiles, raster.bin_packed
+    orig, orig_pass = raster.rasterize_tiles, raster.rasterize_bands
 
     def wrapped(*inputs, **kw):
         store.append(inputs)
         return orig(*inputs, **kw)
 
-    def wrapped_bin(packed, *args):
-        if packed_rows is not None:
-            packed_rows.append(packed.shape[0])
-        return orig_bin(packed, *args)
+    def wrapped_pass(packed, valid, bbox, *args):
+        if records is not None:
+            records.append((packed, valid, bbox))
+        return orig_pass(packed, valid, bbox, *args)
 
     raster.rasterize_tiles = wrapped
-    raster.bin_packed = wrapped_bin
+    raster.rasterize_bands = wrapped_pass
     try:
         yield
     finally:
         raster.rasterize_tiles = orig
-        raster.bin_packed = orig_bin
+        raster.rasterize_bands = orig_pass
 
 
 @contextlib.contextmanager
@@ -296,7 +315,8 @@ def plain_k1():
     from myrenderer_tpu_torch.ops import raster, raster_cuda
     orig = raster.rasterize_tiles
     raster.rasterize_tiles = (
-        lambda *inputs, **kw: raster_cuda.rasterize_tiles_reference(*inputs))
+        lambda *inputs, check_segments=True, **kw:
+        raster_cuda.rasterize_tiles_reference(*inputs, **kw))
     try:
         yield
     finally:
@@ -312,11 +332,50 @@ def time_frames(app, n: int) -> float:
     return (time.perf_counter() - t0) * 1000.0 / n
 
 
-def time_call(fn, n: int) -> float:
+def time_in_turns(apps: dict, n: int, rounds: int = BAND_ROUNDS):
+    """ms/frame of each app in ``apps`` {bands: app}: ``n`` fenced frames
+    an app, the apps taking turns for ``rounds`` rounds. Returns each
+    app's rounds and the K1 launches each made (counted from 0 just
+    before each of its turns)."""
+    from myrenderer_tpu_torch.ops import raster_cuda as rk
+    ms = {k: [] for k in apps}
+    launches = dict.fromkeys(apps, 0)
+    for _ in range(rounds):
+        for k, app in apps.items():
+            rk.K1.launches = 0
+            ms[k].append(time_frames(app, n))
+            launches[k] += rk.K1.launches
+    for k, count in launches.items():
+        if count != k * n * rounds:
+            raise AssertionError(f"K1 launched {count} times in "
+                                 f"{n * rounds} frames of {k} bands")
+    return ms, launches
+
+
+def report_turns(label, ms: dict, launches: dict, syncs: dict, n: int,
+                 card: str):
+    for k, rounds in ms.items():
+        print(f"  {label} on {k} band{'s' if k > 1 else ''}: "
+              f"{float(np.median(rounds)):.3f} ms/frame (median of rounds "
+              f"{', '.join(f'{r:.3f}' for r in rounds)}; {n} frames each), "
+              f"{launches[k] / (n * len(rounds)):.0f} K1 launches a frame, "
+              f"{sum(syncs[k].values())} host syncs a frame (one raster "
+              f"pass); card: {card}")
+        print(f"    syncs by line: " + ", ".join(
+            f"{site} x{c}" for site, c in sorted(syncs[k].items())))
+
+
+def time_call(fn, n: int, head_start: bool = False) -> float:
+    """Device ms per call over ``n`` back-to-back calls of ``fn``.
+    ``head_start`` first queues a spin of 0.1 ms a call on the card, so
+    the host has queued every call before the card reaches the first: a
+    slow host then cannot leave the card idle between short kernels."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     fn()
     torch.cuda.synchronize()
+    if head_start:
+        torch.cuda._sleep(int(n * 0.1e-3 * SPIN_HZ))
     start.record()
     for _ in range(n):
         fn()
@@ -333,7 +392,7 @@ def fenced_layers(totals: dict):
     from myrenderer_tpu_torch.renderer import draw
     targets = [(draw, "_batch_vertex_products", "vertex stage (incl. cull)"),
                (draw, "_setup_batch", "clip + setup + pack"),
-               (raster, "bin_packed", "binning"),
+               (raster, "bin_bands", "binning"),
                (raster, "rasterize_tiles", "K1"),
                (raster, "shade_from_planes_ranges", "shade"),
                (draw.Draw, "_gather_args", "_gather_args (host to device)")]
@@ -490,6 +549,150 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
         b.cpu().contiguous().view(torch.int32))
 
 
+def banded_k1_checks(frames, bands: int) -> float:
+    """K1 against its plain version on every band below the first of
+    each frame-1 pass in ``frames``: (label, (packed, valid, bbox),
+    (H, W), incoming depth). Returns the max abs difference."""
+    from myrenderer_tpu_torch.ops import raster
+    err = 0.0
+    for label, (packed, valid, bbox), (H, W), depth_in in frames:
+        band = H // bands
+        for k in range(1, bands):
+            y0 = k * band
+            index, starts, counts = raster.bin_packed(packed, valid, bbox,
+                                                      band, W, y0=y0)
+            depth = torch.full((band, W), depth_in, device=packed.device)
+            err = max(err, compare_k1((packed, index, starts, counts, depth),
+                                      f"{label} band {k} of {bands} "
+                                      f"(y0 {y0})", y0=y0))
+    return err
+
+
+def sliver_band_check(dev) -> float:
+    """K1 against its plain version on thin slivers grazing sub-block
+    borders in the last 270-row band of a 7680x4320 frame."""
+    from myrenderer_tpu_torch.ops import raster
+    from myrenderer_tpu_torch.ops import raster_common as rc
+    from myrenderer_tpu_torch.utils.trisets import band_slivers
+    H, W, band = 4320, 7680, 270
+    y0 = H - band
+    clip, vary = band_slivers(20000, 7, H, W, y0)
+    clip_t = torch.from_numpy(clip).to(dev)
+    tc = rc.triangle_setup(clip_t, torch.from_numpy(vary).to(dev),
+                           torch.ones(clip.shape[0], dtype=torch.bool,
+                                      device=dev), W, H, "none")
+    packed = rc.pack_coeffs_full(tc)
+    index, starts, counts = raster.bin_packed(
+        packed, tc.valid, raster.viewport_bbox(clip_t, W, H), band, W, y0=y0)
+    depth = torch.ones((band, W), device=dev)
+    return compare_k1((packed, index, starts, counts, depth),
+                      f"slivers 7680x4320 last band (y0 {y0})", y0=y0)
+
+
+def syncs_per_frame(app) -> collections.Counter:
+    """Host syncs of one frame, as the CUDA sync debug mode reports
+    them, counted by the source line that made each (a blocking copy
+    from pageable host memory counts as one). The second of two frames
+    is counted: the first may also count the mode's own set-up."""
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                app.tick()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    def site(w):
+        path = os.path.relpath(w.filename, REPO)
+        return (f"{os.path.basename(path) if path.startswith('..') else path}"
+                f":{w.lineno}")
+    return collections.Counter(site(w) for w in caught
+                               if "synchroniz" in str(w.message))
+
+
+def assert_same_frame(banded, fb, winner, label):
+    """The banded app's framebuffer and winners bit-equal to a
+    single-device frame's ``fb`` and ``winner``."""
+    if not (bits_equal(banded.window.framebuffer.cpu(), fb)
+            and len(banded.draw.last_winners) == 1
+            and torch.equal(banded.draw.last_winners[0].cpu(), winner.cpu())):
+        raise AssertionError(f"{label} differs from the single-device frame")
+    print(f"  {label}: framebuffer and winners bit-equal to the "
+          f"single-device frame ({len(banded.window.framebuffer.bands)} "
+          f"bands)")
+
+
+def banded_demo(devices, single_frames: dict, label):
+    """DemoApp(1920, 1080) banded over ``devices`` for 31 frames, held
+    to ``single_frames`` {frame: (framebuffer, winner)} at frames 1 and
+    31."""
+    from myrenderer_tpu_torch.app.demo import DemoApp
+    from myrenderer_tpu_torch.parallel import make_mesh
+    app = DemoApp(1920, 1080, mesh=make_mesh(devices=devices))
+    app.renderer.debug_winner = True
+    for frame in range(1, 32):
+        app.tick()
+        if frame in single_frames:
+            assert_same_frame(app, *single_frames[frame],
+                              f"{label}, frame {frame}")
+    devices = sorted({str(d) for d in app.window.framebuffer.devices})
+    print(f"  {label}: on {devices}")
+    return app
+
+
+def single_demo_frames():
+    """DemoApp(1920, 1080) on one device after 31 frames, and its
+    {frame: (framebuffer, winner)} at frames 1 and 31."""
+    from myrenderer_tpu_torch.app.demo import DemoApp
+    single = DemoApp(1920, 1080, device="cuda")
+    single.renderer.debug_winner = True
+    frames = {}
+    for frame in range(1, 32):
+        single.tick()
+        if frame in (1, 31):
+            frames[frame] = (single.window.framebuffer.cpu(),
+                             single.draw.last_winners[0].cpu())
+    return single, frames
+
+
+def bands_over_cards(single, single_frames, card):
+    """One band a card over every card (as many as divide 1080): the
+    1080p demo (frames 1 and 31) and the stress scene (frame 1)
+    bit-equal to one device, then each timed beside one device in
+    turns."""
+    from myrenderer_tpu_torch.app.stress import StressApp
+    from myrenderer_tpu_torch.parallel import make_mesh
+    n = torch.cuda.device_count()
+    while 1080 % n:
+        n -= 1
+    devices = [torch.device("cuda", i) for i in range(n)]
+    banded = banded_demo(devices, single_frames,
+                         f"demo 1920x1080 on {n} cards")
+    single.renderer.debug_winner = banded.renderer.debug_winner = False
+    apps = {1: single, n: banded}
+    ms, launches = time_in_turns(apps, BAND_FRAMES)
+    report_turns("demo 1920x1080, one band a card", ms, launches,
+                 {k: syncs_per_frame(a) for k, a in apps.items()},
+                 BAND_FRAMES, card)
+    single.renderer.debug_winner = True
+    del apps, banded
+    gc.collect()
+    apps = {1: StressApp(device="cuda"),
+            n: StressApp(mesh=make_mesh(devices=devices))}
+    for app in apps.values():
+        app.renderer.debug_winner = True
+        app.tick()
+        app.renderer.debug_winner = False
+    assert_same_frame(apps[n], apps[1].window.framebuffer,
+                      apps[1].draw.last_winners[0],
+                      f"stress 3840x2160 frame 1 on {n} cards")
+    ms, launches = time_in_turns(apps, BAND_STRESS_FRAMES)
+    report_turns("stress 3840x2160, one band a card", ms, launches,
+                 {k: syncs_per_frame(a) for k, a in apps.items()},
+                 BAND_STRESS_FRAMES, card)
+
+
 def main() -> int:
     phase("1 environment")
     if not torch.cuda.is_available():
@@ -536,11 +739,14 @@ def main() -> int:
     for d in ("cuda", "cpu"):
         app = DemoApp(1920, 1080, device=d)
         app.renderer.debug_winner = True
-        store = []
-        with capture_k1_inputs(store):
+        store, records = [], []
+        with capture_k1_inputs(store, records):
             app.tick()
-        frames[d] = (app, store[0])
+        frames[d] = (app, store[0], records[0])
     k1_inputs = frames["cuda"][1]
+    # frame-1 records of each scene, for the row-band phase
+    band_frames = [("demo 1920x1080", frames["cuda"][2], (1080, 1920),
+                    float(k1_inputs[4][0, 0]))]
     max_err = compare_k1(k1_inputs, "demo 1920x1080 frame 1")
     tile_stats(k1_inputs, "demo 1920x1080 frame 1")
     for name, a, b in zip(("records", "index", "starts", "counts"),
@@ -627,9 +833,9 @@ def main() -> int:
         raise AssertionError("the stress scene is not at full width")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    store, packed_rows = [], []
+    store, records = [], []
     launches = rk.K1.launches
-    with capture_k1_inputs(store, packed_rows):
+    with capture_k1_inputs(store, records):
         stress.tick()                                   # warm-up, frame 1
     torch.cuda.synchronize()
     # the scene's state plus frame 1's temporaries
@@ -637,7 +843,9 @@ def main() -> int:
     if rk.K1.launches - launches != 1 or len(store) != 1:
         raise AssertionError("the stress frame is not one K1 launch")
     s_inputs = store[0]
-    print(f"  frame 1: {packed_rows[0]} packed records, "
+    band_frames.append(("stress 3840x2160", records[0], (2160, 3840),
+                        float(s_inputs[4][0, 0])))
+    print(f"  frame 1: {records[0][0].shape[0]} packed records, "
           f"{s_inputs[1].shape[0]} binned (tile, record) pairs, clip scale "
           f"{stress.draw.clip_scale}; peak device memory "
           f"{peak / 2**20:.1f} MiB (above {base / 2**20:.1f} MiB held "
@@ -684,8 +892,8 @@ def main() -> int:
     invalid[:, 15] = 0.0
     no_walk = (invalid, index_s, starts_s, counts_s, depth_s)
     launches = rk.K1.launches
-    floor_ms = time_call(lambda: rk.K1(*empty), 50)
-    no_walk_ms = time_call(lambda: rk.K1(*no_walk), 50)
+    floor_ms = time_call(lambda: rk.K1(*empty), 50, head_start=True)
+    no_walk_ms = time_call(lambda: rk.K1(*no_walk), 50, head_start=True)
     rk.K1.launches = launches
     floor_bytes = 8 * depth_s.numel() * 4 + 2 * counts_s.numel() * 4
     print(f"  K1 with every tile empty at these shapes: {floor_ms:.4f} ms for "
@@ -769,9 +977,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     app = DemoApp(7680, 4320, device="cuda")
-    store = []
+    store, records = [], []
     rk.K1.launches = 0
-    with capture_k1_inputs(store):
+    with capture_k1_inputs(store, records):
         app.tick()
     k8_launches = rk.K1.launches
     if k8_launches != 1 or len(store) != 1:
@@ -783,12 +991,82 @@ def main() -> int:
     k8_err = compare_k1(store[0], "demo 7680x4320 frame 1")
     shapes["demo_8k"] = time_k1(store[0], 50, 2,
                                 "demo 7680x4320 frame-1 shapes", card, flush)
-    del app, store, fb
+    band_frames.append(("demo 7680x4320", records[0], (4320, 7680),
+                        float(store[0][4][0, 0])))
+    del app, store, fb, records
 
-    phase("10 results")
+    phase("10 row bands on the card")
+    from myrenderer_tpu_torch.parallel import make_mesh
+    # (a) K1 at y0 > 0 against its plain version, bit for bit
+    band_err = max(banded_k1_checks(band_frames, 4), sliver_band_check(dev))
+    del band_frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the 1080p demo on 4 bands of this card against one device
+    single, single_frames = single_demo_frames()
+    banded = banded_demo([dev] * 4, single_frames, "demo 1920x1080 on 4 "
+                         "bands of one card")
+    # (d) one band a card, where there are several
+    if torch.cuda.device_count() > 1:
+        bands_over_cards(single, single_frames, card)
+    # (e) ms/frame beside the single-device frame, in turns
+    single.renderer.debug_winner = banded.renderer.debug_winner = False
+    demo_ms, demo_launches = time_in_turns({1: single, 4: banded},
+                                           BAND_FRAMES)
+    demo_bands_launches = demo_launches[4]
+    demo_syncs = {1: syncs_per_frame(single), 4: syncs_per_frame(banded)}
+    report_turns("demo 1920x1080", demo_ms, demo_launches, demo_syncs,
+                 BAND_FRAMES, card)
+    del single, banded, single_frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) the stress scene on 4 and 8 bands against one device
+    stress_apps = {1: StressApp(device="cuda")}
+    stress_apps[1].renderer.debug_winner = True
+    stress_apps[1].tick()
+    frame1 = (stress_apps[1].window.framebuffer.clone(),
+              stress_apps[1].draw.last_winners[0].clone())
+    for n in (4, 8):
+        app = StressApp(mesh=make_mesh(devices=[dev] * n))
+        app.renderer.debug_winner = True
+        app.tick()
+        assert_same_frame(app, *frame1, f"stress 3840x2160 frame 1 on {n} "
+                          "bands")
+        stress_apps[n] = app
+    for app in stress_apps.values():
+        app.renderer.debug_winner = False
+    stress_turn_ms, stress_launches_b = time_in_turns(stress_apps,
+                                                      BAND_STRESS_FRAMES)
+    stress_syncs = {n: syncs_per_frame(a) for n, a in stress_apps.items()}
+    report_turns("stress 3840x2160", stress_turn_ms, stress_launches_b,
+                 stress_syncs, BAND_STRESS_FRAMES, card)
+    # where the banded frames' time goes: phase 6's fences, the apps in
+    # turns, each layer's least ms/frame over the rounds
+    layers = {n: {} for n in stress_apps}
+    for _ in range(BAND_ROUNDS):
+        for n, app in stress_apps.items():
+            totals = {}
+            with fenced_layers(totals):
+                totals["total"] = (time_frames(app, PROFILE_FRAMES)
+                                   * PROFILE_FRAMES)
+            for label, total in totals.items():
+                layers[n][label] = min(layers[n].get(label, np.inf),
+                                       total / PROFILE_FRAMES)
+    for label in sorted(layers[1], key=lambda k: -layers[1][k]):
+        print(f"  stress 3840x2160 fenced {label} (least of "
+              f"{BAND_ROUNDS} rounds): " + ", ".join(
+                  f"{layers[n][label]:.3f}" for n in stress_apps)
+              + f" ms/frame on {', '.join(map(str, stress_apps))} bands")
+    del stress_apps, app, frame1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("11 results")
     by_path = {"demo_1080p": path_launches, "stress_4k": stress_launches,
                "sequential": seq_launches, "textured": tex_launches,
-               "demo_8k": k8_launches}
+               "demo_8k": k8_launches,
+               "demo_1080p_bands4": demo_bands_launches,
+               "stress_4k_bands4": stress_launches_b[4]}
     print(json.dumps({"kernels": [{
         "name": "K1 raster_tile",
         "route": "cuda",
@@ -796,7 +1074,7 @@ def main() -> int:
         "replaces": "myrenderer_tpu/ops/raster_pallas.py:659",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": max(max_err, s_err, k8_err),
+        "max_abs_err": max(max_err, s_err, k8_err, band_err),
         # the main path's shapes (the 1080p demo's frame 1); every shape
         # timed is under "shapes"
         "ms": shapes["demo_1080p"]["ms"],
@@ -810,6 +1088,9 @@ def main() -> int:
         "stress_frame_ms": stress_ms,
         "stress_plain_frame_ms": stress_plain_ms,
         "stress_peak_mib": peak / 2**20,
+        "demo_bands4_frame_ms": float(np.median(demo_ms[4])),
+        "stress_bands4_frame_ms": float(np.median(stress_turn_ms[4])),
+        "stress_bands8_frame_ms": float(np.median(stress_turn_ms[8])),
         "build_s": rk.K1.build_seconds,
     }]}))
     print(card)

@@ -16,6 +16,9 @@ Run:  python -m myrenderer_tpu_torch.app.demo --size 1920x1080 \
           --frames 60 --time          (one CUDA card)
       python -m myrenderer_tpu_torch.app.demo --device cpu \
           --size 128x128 --out frame.png
+
+Row bands have no flag (nor has the JAX demo's): build
+``DemoApp(..., mesh=parallel.make_mesh(...))`` from Python.
 """
 
 from __future__ import annotations
@@ -55,12 +58,14 @@ class DemoApp:
     heightmap: Optional[object] = None      # path, array, or None=generated
     fixed_timestep: Optional[float] = 1.0 / 60.0
     device: str = "cuda"
+    mesh: Optional[object] = None           # row bands (parallel.make_mesh)
 
     def __post_init__(self):
         self.core = Core(fixed_timestep=self.fixed_timestep)
         self.window = self.core.create_window(self.width, self.height,
                                               "Platypro's Thing")
-        self.renderer = Renderer(self.core, device=self.device)
+        self.renderer = Renderer(self.core, device=self.device,
+                                 mesh=self.mesh)
         # scene construction is DEFERRED to the window_open event, the
         # reference's lifecycle (App.zig:54-92 builds the scene inside
         # the event branch of the first tick). create_window enqueued

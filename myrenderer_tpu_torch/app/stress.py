@@ -85,15 +85,15 @@ def _instanced_marker_pipeline(rend, grid: int, terrain_size: int):
 
 class StressApp:
     """The stress scene on ``device``; ``backend`` is the renderer's
-    ``raster_backend``."""
+    ``raster_backend``, ``mesh`` its row bands."""
 
     def __init__(self, width: int = 3840, height: int = 2160,
                  terrain_size: int = 708, instances: int = 10000,
-                 device: str = "cuda", backend: str = "auto"):
+                 device: str = "cuda", backend: str = "auto", mesh=None):
         self.core = Core(fixed_timestep=1.0 / 60.0)
         self.window = self.core.create_window(width, height, "stress")
         self.renderer = Renderer(self.core, device=device,
-                                 raster_backend=backend)
+                                 raster_backend=backend, mesh=mesh)
         self.renderer.adopt_window(self.window)
 
         hm = default_heightmap(terrain_size)

@@ -8,6 +8,10 @@
 // as in ops/raster_common.py), and write
 //   fused[0] = depth, fused[1] = den plane, fused[2..5] = 4 num planes,
 //   winner   = the record's id lane (-1 where nothing covers).
+// The tiles may cover a band of a taller frame: pixel row y of the band
+// is row y0 + y of the frame, and every coverage and depth test runs at
+// the frame's pixel centres, so a band equals the same rows of the
+// whole frame rendered at once. Outputs stay band-local.
 // Coverage: three edge values against top-left thresholds, then
 // z = zn / wn inside [zhi - 1, zhi]. Resolve: lexicographic min of
 // (z, id) starting from (depth_in, -1), so equal depth goes to the
@@ -55,7 +59,9 @@
 //   sub-block is at most its value at the sub-block's centre plus
 //   (|a| + |b|) * 1.5 (the exact function is linear) plus twice the
 //   rounding error of one evaluation (at most
-//   3 * 2^-24 * (|a|*X + |b|*Y + |c|), X and Y the padded frame size).
+//   3 * 2^-24 * (|a|*X + |b|*Y + |c|), X the padded frame width and Y
+//   the largest frame row the band evaluates, `ymax` = y0 plus the
+//   band's padded height: a bound on every pixel and sub-block centre).
 //   A sub-block is rejected when some edge's centre value is below minus
 //   that extent and a margin of 2^-18 * (|a|*X + |b|*Y + |c|) + 2^-125,
 //   so a rejected sub-block holds no pixel whose exact test passes: the
@@ -187,7 +193,8 @@ raster_tile_kernel(const float* __restrict__ packed,
                    const float* __restrict__ depth_in,
                    float* __restrict__ fused,
                    int* __restrict__ winner,
-                   int height, int width, int ntx, int nty, int vec) {
+                   int height, int width, int y0, float xmax,
+                   float ymax, int ntx, int nty, int vec) {
   __shared__ __align__(16) float raw[SLOTS][CHUNK][SLOT_W];
   __shared__ int srow[SLOTS][CHUNK];             // each record's packed row
   __shared__ unsigned char todo[SUBS][CHUNK];    // per sub-block, in order
@@ -204,7 +211,7 @@ raster_tile_kernel(const float* __restrict__ packed,
   const int y = blockIdx.y * TILE_H + (sub / SUBS_X) * SUB +
                 (tid % LANES_SUB) / LANES_ROW;
   const bool row_in = y < height;
-  const float py = __fadd_rn(__int2float_rn(y), 0.5f);
+  const float py = __fadd_rn(__int2float_rn(y0 + y), 0.5f);
   float px[PX];
 #pragma unroll
   for (int k = 0; k < PX; ++k) px[k] = __fadd_rn(__int2float_rn(x0 + k), 0.5f);
@@ -242,8 +249,6 @@ raster_tile_kernel(const float* __restrict__ packed,
     cp_async_commit();
   };
 
-  const float xmax = __int2float_rn(ntx * TILE_W);
-  const float ymax = __int2float_rn(nty * TILE_H);
   const unsigned below = (1u << lane) - 1u;
   const int mine = lane / LANES_SUB;     // this lane's sub-block in the warp
 
@@ -265,7 +270,7 @@ raster_tile_kernel(const float* __restrict__ packed,
           for (int sb = 0; sb < SUBS; ++sb) {
             const float xc = __int2float_rn(blockIdx.x * TILE_W +
                                             (sb % SUBS_X) * SUB) + 0.5f * SUB;
-            const float yc = __int2float_rn(blockIdx.y * TILE_H +
+            const float yc = __int2float_rn(y0 + blockIdx.y * TILE_H +
                                             (sb / SUBS_X) * SUB) + 0.5f * SUB;
             if (plane(a, b, cc, xc, yc) < lim) keep &= ~(1u << sb);
           }
@@ -407,13 +412,16 @@ raster_tile_kernel(const float* __restrict__ packed,
 extern "C" int raster_tile_tile_h() { return TILE_H; }
 extern "C" int raster_tile_tile_w() { return TILE_W; }
 
-// Launches K1 on `stream_handle` (a cudaStream_t). Allocates nothing and
-// does not synchronise. Returns cudaGetLastError() after the launch.
+// Launches K1 on `stream_handle` (a cudaStream_t) over a band of
+// `height` rows whose first row is row `y0` of the frame; `ymax` bounds
+// the frame rows the band evaluates (y0 plus its padded height).
+// Allocates nothing and does not synchronise. Returns cudaGetLastError()
+// after the launch.
 extern "C" int raster_tile_launch(const float* packed, const int* index,
                                   const int* starts, const int* counts,
                                   const float* depth_in, float* fused,
                                   int* winner, int height, int width,
-                                  void* stream_handle) {
+                                  int y0, int ymax, void* stream_handle) {
   const int ntx = (width + TILE_W - 1) / TILE_W;
   const int nty = (height + TILE_H - 1) / TILE_H;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(depth_in) |
@@ -421,10 +429,14 @@ extern "C" int raster_tile_launch(const float* packed, const int* index,
                          reinterpret_cast<uintptr_t>(winner);
   const int vec = (width % PX == 0) && (ptrs % (4 * PX) == 0);
   if (ntx > 0 && nty > 0) {
+    // the reject's bounds as float parameters (exact below 2^24): read
+    // from the parameter bank, they take no register (converted in the
+    // kernel, they cost a spill at the 56-register cap)
     raster_tile_kernel<<<dim3(ntx, nty), THREADS, 0,
                          static_cast<cudaStream_t>(stream_handle)>>>(
         packed, index, starts, counts, depth_in, fused, winner, height,
-        width, ntx, nty, vec);
+        width, y0, static_cast<float>(ntx * TILE_W),
+        static_cast<float>(ymax), ntx, nty, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,9 +11,9 @@ raster pass:
    counted with ``bincount`` into CSR ``starts/counts``. The bin order
    is an index of record rows (4 bytes a pair); the records themselves
    are not copied. The sizes are exact (one host sync for the pair
-   count), so there is no stream capacity, no span budget and no shared
-   "big" list. The resolve is order-free, so routing cannot change a
-   pixel.
+   count of a pass, however many row bands it has), so there is no
+   stream capacity, no span budget and no shared "big" list. The
+   resolve is order-free, so routing cannot change a pixel.
 2. **K1** (``raster_cuda.rasterize_tiles``): one CTA per tile, reading
    the records through the index.
 3. **Shading** (plain torch): one divide and the fragment programs over
@@ -40,29 +40,22 @@ def viewport_bbox(tri_clip: torch.Tensor, width: int, vp_height: int):
     return (u.amin(1), u.amax(1), v.amin(1), v.amax(1))
 
 
-def bin_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
-               height: int, width: int):
-    """Exact CSR binning of records to the tiles of an H x W frame.
-
-    Returns (index i32[S], starts i32[NT], counts i32[NT]) with
-    NT = ceil(H / TILE_H) * ceil(W / TILE_W), tiles row-major: tile t's
-    records are ``packed[index[starts[t]:starts[t] + counts[t]]]``, in
-    ascending row order. A triangle goes to every tile its clipped
-    bounding box touches, as in the reference; triangles whose box
-    misses the frame are dropped."""
-    dev = packed.device
+def _bin_spans(valid, bbox, height: int, width: int, y0: int):
+    """Per-record tile rects of one band: (span i64[T], sx, tx0, ty0,
+    ntx, NT); span is the record's tile count, 0 when culled."""
     nty = -(-height // TILE_H)
     ntx = -(-width // TILE_W)
-    NT = nty * ntx
-    # the reference bins on the tile-padded frame height
+    # the reference bins on the tile-padded band height
     ph = nty * TILE_H
-    valid = (valid & (bbox[3] >= 0.0) & (bbox[2] < ph)
+    # band-local cull: a record whose box misses rows [y0, y0 + ph) (or
+    # the frame's columns) covers no pixel of this band
+    valid = (valid & (bbox[3] >= y0) & (bbox[2] < y0 + ph)
              & (bbox[1] >= 0.0) & (bbox[0] < width))
     minx = torch.clamp(torch.floor(bbox[0]), 0, width - 1)
     maxx = torch.clamp(torch.ceil(bbox[1]), 0, width - 1)
-    miny = torch.clamp(torch.floor(bbox[2]), 0, ph - 1)
-    maxy = torch.clamp(torch.ceil(bbox[3]), 0, ph - 1)
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    miny = torch.clamp(torch.floor(bbox[2]) - y0, 0, ph - 1)
+    maxy = torch.clamp(torch.ceil(bbox[3]) - y0, 0, ph - 1)
+    zero = torch.zeros((), dtype=torch.int32, device=valid.device)
     tx0 = torch.where(valid, (minx / TILE_W).to(torch.int32), zero)
     tx1 = torch.where(valid, (maxx / TILE_W).to(torch.int32), zero)
     ty0 = torch.where(valid, (miny / TILE_H).to(torch.int32), zero)
@@ -70,8 +63,14 @@ def bin_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
     sx = (tx1 - tx0 + 1).long()
     span = torch.where(valid, sx * (ty1 - ty0 + 1).long(),
                        torch.zeros_like(sx))
+    return span, sx, tx0, ty0, ntx, nty * ntx
 
-    total = int(span.sum())                       # the one host sync
+
+def _bin_expand(spans, total: int):
+    """(index, starts, counts) from :func:`_bin_spans` and the sum of
+    its spans."""
+    span, sx, tx0, ty0, ntx, NT = spans
+    dev = span.device
     tri = torch.repeat_interleave(torch.arange(span.shape[0], device=dev),
                                   span, output_size=total)
     first = torch.cumsum(span, 0) - span
@@ -80,17 +79,59 @@ def bin_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
     ex = k - ey * sx[tri]
     tile = (ty0[tri].long() + ey) * ntx + tx0[tri].long() + ex
     tile_sorted, order = torch.sort(tile, stable=True)
-    counts = torch.bincount(tile_sorted, minlength=NT)
-    starts = torch.cumsum(counts, 0) - counts
+    # each tile's segment of the sorted pairs (bincount would read the
+    # largest tile id back to the host: a sync per band)
+    bounds = torch.searchsorted(tile_sorted,
+                                torch.arange(NT + 1, device=dev))
+    starts = bounds[:-1]
+    counts = bounds[1:] - starts
     index = tri[order].to(torch.int32)
     return index, starts.to(torch.int32), counts.to(torch.int32)
 
 
+def bin_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
+               height: int, width: int, y0: int = 0):
+    """Exact CSR binning of records to the tiles of an H x W frame, or of
+    the band of H rows whose first row is row ``y0`` of a taller frame
+    (``bbox`` in the frame's coordinates).
+
+    Returns (index i32[S], starts i32[NT], counts i32[NT]) with
+    NT = ceil(H / TILE_H) * ceil(W / TILE_W), tiles row-major: tile t's
+    records are ``packed[index[starts[t]:starts[t] + counts[t]]]``, in
+    ascending row order. A triangle goes to every tile its clipped
+    bounding box touches, as in the reference; triangles whose box
+    misses the band are dropped."""
+    spans = _bin_spans(valid, bbox, height, width, y0)
+    return _bin_expand(spans, int(spans[0].sum()))   # the one host sync
+
+
+def bin_bands(bands, width: int):
+    """:func:`bin_packed` of several bands with ONE host sync: ``bands``
+    holds (valid, bbox, height, y0) per band, each on its own device.
+    Every band's spans are launched before the pair counts are read."""
+    spans = [_bin_spans(v, b, h, width, y0) for v, b, h, y0 in bands]
+    dev = spans[0][0].device
+    totals = torch.stack([s[0].sum().to(dev) for s in spans]).tolist()
+    return [_bin_expand(s, t) for s, t in zip(spans, totals)]
+
+
+def _k1_pass(packed, index, starts, counts, depth, y0, vp_height):
+    fused, winner = rasterize_tiles(packed.contiguous(), index, starts,
+                                    counts, depth.contiguous(), y0=y0,
+                                    vp_height=vp_height,
+                                    check_segments=False)
+    return fused[0], winner, fused[2:6], fused[1]
+
+
 def rasterize_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
                      height: int, width: int,
-                     depth: Optional[torch.Tensor] = None):
+                     depth: Optional[torch.Tensor] = None, y0: int = 0,
+                     vp_height: Optional[int] = None):
     """One raster pass over packed records (``rc.pack_coeffs_full``, id
-    lane already holding global ranks).
+    lane already holding global ranks), over the frame or over the band
+    of ``height`` rows from row ``y0`` of a ``vp_height``-row frame
+    (records set up and boxed at the full height). A band is bit-equal
+    to the same rows of the whole frame.
 
     Returns (depth f32[H, W], winner i32[H, W], vary_num f32[4, H, W],
     vary_den f32[H, W]): the reference's contract without its overflow
@@ -100,11 +141,67 @@ def rasterize_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
     if depth is None:
         depth = torch.ones((height, width), dtype=torch.float32,
                            device=packed.device)
-    index, starts, counts = bin_packed(packed, valid, bbox, height, width)
-    fused, winner = rasterize_tiles(packed.contiguous(), index, starts,
-                                    counts, depth.contiguous(),
-                                    check_segments=False)
-    return fused[0], winner, fused[2:6], fused[1]
+    index, starts, counts = bin_packed(packed, valid, bbox, height, width,
+                                       y0=y0)
+    return _k1_pass(packed, index, starts, counts, depth, y0, vp_height)
+
+
+def rasterize_bands(packed: torch.Tensor, valid: torch.Tensor, bbox,
+                    width: int, vp_height: int, bands):
+    """:func:`rasterize_packed` over row bands of one frame, each on its
+    own device: ``bands`` holds (y0, depth f32[h, W]) per band, the
+    band's device being its depth's. The records go to each device
+    (``non_blocking``; a no-op where they already are), every band is
+    binned with one host sync in all, then K1 runs band by band on each
+    device's current stream. Returns one (depth, winner, num, den) per
+    band."""
+    moved = []
+    for _y0, depth in bands:
+        dev = depth.device
+        moved.append((packed.to(dev, non_blocking=True),
+                      valid.to(dev, non_blocking=True),
+                      tuple(c.to(dev, non_blocking=True) for c in bbox)))
+    bins = bin_bands([(v, b, depth.shape[0], y0) for (y0, depth), (_p, v, b)
+                      in zip(bands, moved)], width)
+    return [_k1_pass(p, *binned, depth, y0, vp_height)
+            for (y0, depth), (p, _v, _b), binned in zip(bands, moved, bins)]
+
+
+def rasterize(tc: rc.TriCoeffs, height: int, width: int,
+              depth: Optional[torch.Tensor] = None, base_index: int = 0,
+              tri_clip: Optional[torch.Tensor] = None, y0: int = 0,
+              vp_height: Optional[int] = None):
+    """Binning and K1 over set-up triangles (``tc`` from
+    ``rc.triangle_setup`` at the full frame height ``vp_height``,
+    default ``height``), ids from ``base_index``; ``tri_clip`` (clip
+    positions) gives the boxes binning needs. Same results as
+    :func:`rasterize_packed`."""
+    if tri_clip is None:
+        raise ValueError("the tile path needs tri_clip for binning")
+    vp_height = height if vp_height is None else vp_height
+    return rasterize_packed(
+        rc.pack_coeffs_full(tc, base=base_index), tc.valid,
+        viewport_bbox(tri_clip, width, vp_height), height, width,
+        depth=depth, y0=y0, vp_height=vp_height)
+
+
+def rasterize_visibility(tc: rc.TriCoeffs, height: int, width: int,
+                         depth: Optional[torch.Tensor] = None,
+                         base_index: int = 0,
+                         tri_clip: Optional[torch.Tensor] = None):
+    """Visibility only, (depth f32[H, W], winner i32[H, W]): the oracle's
+    signature (``raster_ref.rasterize_visibility``) over the tile path."""
+    d, w, _num, _den = rasterize(tc, height, width, depth=depth,
+                                 base_index=base_index, tri_clip=tri_clip)
+    return d, w
+
+
+def shade_from_planes(winner, num, den, fb, fragment_fn):
+    """Dense shading from K1's planes: the fragment program over every
+    pixel, written where something covers (no blending,
+    ``Pipeline.zig:137-140``)."""
+    varp = torch.movedim(num, 0, -1) / den[..., None]
+    return torch.where((winner >= 0)[..., None], fragment_fn(varp), fb)
 
 
 def shade_from_planes_ranges(winner, num, den, fb, ranges):

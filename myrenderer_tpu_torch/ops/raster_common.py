@@ -415,11 +415,14 @@ def resolve_varyings(tc: TriCoeffs, winner: torch.Tensor, px, py):
     return cn / en[..., None], covered
 
 
-def pixel_grids(height: int, width: int, device=None):
-    """Pixel-center coordinate grids (px, py), f32[height, width]."""
+def pixel_grids(height: int, width: int, y0: int = 0, x0: int = 0,
+                device=None):
+    """Pixel-center coordinate grids (px, py), f32[height, width], of the
+    region whose top-left pixel is (x0, y0): ``iota + y0 + 0.5``, two
+    roundings, as in the reference."""
     f32 = torch.float32
     py = (torch.arange(height, dtype=f32, device=device)[:, None]
-          + 0.5).expand(height, width)
+          + float(y0) + 0.5).expand(height, width)
     px = (torch.arange(width, dtype=f32, device=device)[None, :]
-          + 0.5).expand(height, width)
+          + float(x0) + 0.5).expand(height, width)
     return px, py

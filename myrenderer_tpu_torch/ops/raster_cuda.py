@@ -6,6 +6,9 @@ record rows, tile after tile) with per-tile CSR offsets, and the incoming
 depth, and returns ``(fused f32[6, H, W], winner i32[H, W])``: depth,
 the varying denominator plane and four varying numerator planes of the
 front-most record at each pixel, and its id (-1 where nothing covers).
+The tiles may cover a band of a taller frame (``y0``, the band's first
+row): the tests run at the frame's pixel centres, so a band equals the
+same rows of the frame rendered whole.
 For CUDA tensors it launches ``csrc/raster_tile.cu``; for CPU tensors
 it runs :func:`rasterize_tiles_reference`, the same function in plain
 torch. There is no fallback from one to the other.
@@ -85,8 +88,9 @@ class RasterTileKernel:
         self.build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(path)
         p = ctypes.c_void_p
+        i32 = ctypes.c_int
         lib.raster_tile_launch.argtypes = [p, p, p, p, p, p, p,
-                                           ctypes.c_int, ctypes.c_int, p]
+                                           i32, i32, i32, i32, p]
         lib.raster_tile_launch.restype = ctypes.c_int
         lib.raster_tile_tile_h.restype = ctypes.c_int
         lib.raster_tile_tile_w.restype = ctypes.c_int
@@ -96,9 +100,11 @@ class RasterTileKernel:
         self.lib = lib
         return lib
 
-    def __call__(self, packed, index, starts, counts, depth):
+    def __call__(self, packed, index, starts, counts, depth, y0: int = 0):
         lib = self.build()
         H, W = depth.shape
+        # the largest frame row the band evaluates: its reject's bound
+        ymax = y0 + -(-H // TILE_H) * TILE_H
         fused = torch.empty((6, H, W), dtype=torch.float32,
                             device=depth.device)
         winner = torch.empty((H, W), dtype=torch.int32,
@@ -108,7 +114,7 @@ class RasterTileKernel:
             err = lib.raster_tile_launch(
                 packed.data_ptr(), index.data_ptr(), starts.data_ptr(),
                 counts.data_ptr(), depth.data_ptr(), fused.data_ptr(),
-                winner.data_ptr(), H, W, handle)
+                winner.data_ptr(), H, W, y0, ymax, handle)
         if err != 0:
             raise RuntimeError(f"K1 launch failed: CUDA error {err}")
         self.launches += 1
@@ -118,7 +124,7 @@ class RasterTileKernel:
 K1 = RasterTileKernel()
 
 
-def _check_layout(packed, index, starts, counts, depth):
+def _check_layout(packed, index, starts, counts, depth, y0, vp_height):
     dev = depth.device
     for name, t, dtype in (("packed", packed, torch.float32),
                            ("index", index, torch.int32),
@@ -132,6 +138,9 @@ def _check_layout(packed, index, starts, counts, depth):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     H, W = depth.shape
+    if not 0 <= y0 <= y0 + H <= vp_height:
+        raise ValueError(f"rows [{y0}, {y0 + H}) are not inside a frame of "
+                         f"{vp_height} rows")
     nt = -(-H // TILE_H) * -(-W // TILE_W)
     if packed.dim() != 2 or packed.shape[1] != rc.FULL_LANES:
         raise ValueError(f"packed must be [R, {rc.FULL_LANES}], got "
@@ -161,14 +170,18 @@ def _check_segments(packed, index, starts, counts):
 
 def rasterize_tiles(packed: torch.Tensor, index: torch.Tensor,
                     starts: torch.Tensor, counts: torch.Tensor,
-                    depth: torch.Tensor, *, check_segments: bool = True):
-    """K1 over a whole frame of TILE_H x TILE_W tiles, tiles row-major.
+                    depth: torch.Tensor, *, y0: int = 0,
+                    vp_height: Optional[int] = None,
+                    check_segments: bool = True):
+    """K1 over a frame, or a band of one, in TILE_H x TILE_W tiles,
+    tiles row-major.
 
     packed f32[R, 32] records; index i32[S] record rows in bin order;
     starts/counts i32[NT] each tile's segment of ``index``; depth
-    f32[H, W] the incoming depth. Returns (fused f32[6, H, W], winner
-    i32[H, W]). Uncovered pixels keep depth_in, winner -1, den 1 and
-    nums 0. Device, dtype, shape and contiguity are always checked; that
+    f32[H, W] the incoming depth of rows [y0, y0 + H) of a frame of
+    ``vp_height`` rows (default y0 + H). Returns (fused f32[6, H, W],
+    winner i32[H, W]). Uncovered pixels keep depth_in, winner -1, den 1
+    and nums 0. Device, dtype, shape and contiguity are always checked; that
     every segment lies inside ``index`` and every index inside
     ``packed`` costs a host sync and is skipped with
     ``check_segments=False`` for the bin order that ``raster.bin_packed``
@@ -176,18 +189,23 @@ def rasterize_tiles(packed: torch.Tensor, index: torch.Tensor,
     if depth.device.type not in ("cuda", "cpu"):
         raise ValueError(f"K1 runs on cuda or cpu tensors, not "
                          f"{depth.device}")
-    _check_layout(packed, index, starts, counts, depth)
+    y0 = int(y0)
+    vp_height = y0 + depth.shape[0] if vp_height is None else int(vp_height)
+    _check_layout(packed, index, starts, counts, depth, y0, vp_height)
     if check_segments:
         _check_segments(packed, index, starts, counts)
     if depth.device.type == "cuda":
-        return K1(packed, index, starts, counts, depth)
-    return rasterize_tiles_reference(packed, index, starts, counts, depth)
+        return K1(packed, index, starts, counts, depth, y0=y0)
+    return rasterize_tiles_reference(packed, index, starts, counts, depth,
+                                     y0=y0, vp_height=vp_height)
 
 
 def rasterize_tiles_reference(packed: torch.Tensor, index: torch.Tensor,
                               starts: torch.Tensor, counts: torch.Tensor,
-                              depth: torch.Tensor):
-    """The plain PyTorch version of K1, same arguments and results.
+                              depth: torch.Tensor, *, y0: int = 0,
+                              vp_height: Optional[int] = None):
+    """The plain PyTorch version of K1, same arguments and results
+    (``vp_height`` only bounds the band; the pixel rows are y0 + y).
 
     Expands every (tile, record) pair of the CSR segments over the
     tile's pixels, ``_REFERENCE_BLOCK`` pairs at a time, and keeps the
@@ -221,7 +239,7 @@ def rasterize_tiles_reference(packed: torch.Tensor, index: torch.Tensor,
         y = (t // ntx * TILE_H)[:, None] + ly[None, :]
         inside = (x < W) & (y < H)
         px = (x.to(torch.float32) + 0.5)
-        py = (y.to(torch.float32) + 0.5)
+        py = ((y + y0).to(torch.float32) + 0.5)
         rec = packed[r][:, None, :]                            # [n, 1, 32]
         cov, z = rc.coverage_depth(rec, px, py)
         cov = cov & inside
@@ -248,7 +266,7 @@ def rasterize_tiles_reference(packed: torch.Tensor, index: torch.Tensor,
     yy = torch.arange(H, device=dev)[:, None].expand(H, W).reshape(-1)
     xx = torch.arange(W, device=dev)[None, :].expand(H, W).reshape(-1)
     px = xx.to(torch.float32) + 0.5
-    py = yy.to(torch.float32) + 0.5
+    py = (yy + y0).to(torch.float32) + 0.5
     covered = best_row >= 0
     wrec = packed[best_row.clamp(min=0)] if packed.shape[0] else \
         torch.zeros((H * W, rc.FULL_LANES), device=dev)

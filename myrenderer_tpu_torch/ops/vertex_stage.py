@@ -133,6 +133,11 @@ class FragmentCtx:
     def binding(self, location: int):
         return self._bindings[location]
 
+    def to(self, device) -> "FragmentCtx":
+        """The same bindings on ``device`` (a row band's device)."""
+        return FragmentCtx({loc: t.to(device, non_blocking=True)
+                            for loc, t in self._bindings.items()})
+
 
 class BatchVertexCtx:
     """Whole-stream inputs of a batched vertex function: ``vertex_index``

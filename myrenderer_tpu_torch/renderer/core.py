@@ -43,7 +43,7 @@ class Window:
 
     def to(self, device: torch.device) -> None:
         """Move the framebuffer to ``device`` (done by the adopting
-        renderer)."""
+        renderer); a banded frame (parallel.Banded) is assembled there."""
         self.device = device
         self.framebuffer = self.framebuffer.to(device)
 
@@ -54,6 +54,7 @@ class Window:
         self.framebuffer = self._zeros()
 
     def read_pixels(self, as_uint8: bool = True) -> np.ndarray:
+        # a banded frame (parallel.Banded) assembles on the host here
         fb = self.framebuffer.cpu().numpy()
         if not as_uint8:
             return fb
@@ -137,14 +138,28 @@ class Renderer:
     picks the oracle on the CPU, ``"auto"`` is the tile path on every
     device.
 
+    ``mesh`` (``parallel.make_mesh``) renders each frame in row bands,
+    one per mesh row on that row's device (the tile backend only); the
+    pre-kernel stage runs on the mesh's first device, which is then the
+    renderer's ``device`` (``device`` must name it), and the framebuffer
+    stays banded (``parallel.Banded``).
+
     Transform products must stay full fp32 on the card, so TF32 is
     switched off for matmuls and cuDNN when a renderer starts."""
 
     MAX_COPIES = 4
 
     def __init__(self, core: Optional[Core] = None, device="cuda",
-                 raster_backend: str = "auto"):
+                 raster_backend: str = "auto", mesh=None):
         self.device = resolve_device(device)
+        if mesh is not None:
+            first, asked = mesh.first_device, torch.device(device)
+            if asked.type != first.type or (
+                    asked.index not in (None, first.index)):
+                raise ValueError(f"renderer device {asked} is not the "
+                                 f"mesh's first device {first}")
+            self.device = first
+        self.mesh = mesh
         self.raster_backend = raster_backend
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False

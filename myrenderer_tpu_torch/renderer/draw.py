@@ -29,6 +29,15 @@ backend): per surface, clear if flagged and start depth at 1.0; per
 batch, one raster pass with batch-local ids against the surface's
 running depth, kept only when the pipeline writes depth.
 
+Row bands (``Renderer(mesh=...)``): the frame is cut into equal bands of
+rows, one per mesh row, each on its device. The pre-kernel stage (vertex
+stage, clip, setup, pack) runs once on the mesh's first device; each
+raster pass then sends the records to every band's device, bins all
+bands with one host sync, and runs K1 and shading band by band. A band
+is bit-identical to the same rows of a single-device frame. The
+framebuffer and ``last_winners`` stay banded (``parallel.Banded``); a
+frame with no clear loads the previous frame's bands.
+
 Clip capacity ladder: when a batch's straddlers outgrow
 ``CLIP_CAPACITY * clip_scale``, the scale (sticky per Draw) grows x4 and
 the frame renders again, up to ``CLIP_SCALE_MAX`` as in the reference;
@@ -47,6 +56,7 @@ import torch
 from ..ops import raster, raster_ref
 from ..ops import raster_common as rc
 from ..ops import vertex_stage as vs
+from ..parallel.sharding import Banded, split_bands
 from .pipeline import Pipeline
 
 # eye-plane straddlers clipped per batch at clip scale 1 (the demo orbit
@@ -91,6 +101,7 @@ class _FramePlan:
     backend: str = "tile"
     merged: bool = True
     debug_winner: bool = False
+    mesh: Optional[object] = None
 
 
 def _build_levels(nodes):
@@ -288,12 +299,50 @@ def _setup_batch(plan: _FramePlan, tris: rc.Triangles, valid, cull_mode,
     return packed, torch.cat([tc.valid, tc_app.valid]), bbox
 
 
-def _merged_pass(plan: _FramePlan, args: dict, products, device, cap):
-    """Every surface in one raster pass. Returns (fb, winner)."""
-    fb = args["fb"]
-    H, W = plan.height, plan.width
+def _band_layout(plan: _FramePlan, device):
+    """(y0, device) of each row band: one band on ``device`` without a
+    mesh, else one per mesh row."""
+    if plan.mesh is None:
+        return [(0, device)]
+    devices = plan.mesh.band_devices()
+    band = plan.height // len(devices)
+    return [(k * band, d) for k, d in enumerate(devices)]
+
+
+def _band_fill(plan: _FramePlan, layout, value):
+    """One [band, W] depth buffer of ``value`` per band."""
+    band = plan.height // len(layout)
+    return [torch.full((band, plan.width), value, dtype=torch.float32,
+                       device=d) for _y0, d in layout]
+
+
+def _band_clear(plan: _FramePlan, layout, color):
+    band = plan.height // len(layout)
+    return [color.to(d, non_blocking=True).expand(band, plan.width, 4)
+            .clone() for _y0, d in layout]
+
+
+def _raster_pass(plan: _FramePlan, layout, packed, valid, bbox, depth, fb,
+                 ranges):
+    """Binning, K1 and shading of one raster pass over every band
+    (``depth`` and ``fb`` hold one tensor per band). Returns (depth, fb,
+    winner), one tensor per band each."""
+    outs = raster.rasterize_bands(
+        packed, valid, bbox, plan.width, plan.height,
+        [(y0, d) for (y0, _dev), d in zip(layout, depth)])
+    fbs = []
+    for (_d, w, num, den), f in zip(outs, fb):
+        on_dev = [(s, e, fn, None if ctx is None else ctx.to(w.device))
+                  for s, e, fn, ctx in ranges]
+        fbs.append(raster.shade_from_planes_ranges(w, num, den, f, on_dev))
+    return [o[0] for o in outs], fbs, [o[1] for o in outs]
+
+
+def _merged_pass(plan: _FramePlan, args: dict, products, layout, fb, cap):
+    """Every surface in one raster pass. Returns (fb, winner), one tensor
+    per band each (winner None without products)."""
     if plan.clear_flags and plan.clear_flags[0]:
-        fb = args["surfaces"][0]["clear"].expand(H, W, 4).clone()
+        fb = _band_clear(plan, layout, args["surfaces"][0]["clear"])
     if not products:
         return fb, None
     S = len(plan.surfaces)
@@ -320,43 +369,43 @@ def _merged_pass(plan: _FramePlan, args: dict, products, device, cap):
     packed = torch.cat(packs)
     valid = torch.cat(valids)
     bbox = tuple(torch.cat(cs) for cs in zip(*bboxes))
-    depth = torch.full((H, W), 2.0 * (S - 1) + 1.0, dtype=torch.float32,
-                       device=device)
-    _depth, winner, num, den = raster.rasterize_packed(
-        packed, valid, bbox, H, W, depth=depth)
-    return raster.shade_from_planes_ranges(winner, num, den, fb,
-                                           ranges), winner
+    depth = _band_fill(plan, layout, 2.0 * (S - 1) + 1.0)
+    _depth, fb, winner = _raster_pass(plan, layout, packed, valid, bbox,
+                                      depth, fb, ranges)
+    return fb, winner
 
 
-def _sequential_passes(plan: _FramePlan, args: dict, products, device,
+def _sequential_passes(plan: _FramePlan, args: dict, products, layout, fb,
                        cap):
     """One raster pass per batch, surface by surface (the reference's
-    ``draw.py:509-547``). Returns (fb, [winner per pass])."""
-    fb = args["fb"]
+    ``draw.py:509-547``), every band in each. Returns (fb, [winner per
+    pass]), one tensor per band each."""
     H, W = plan.height, plan.width
     products = iter(products)
     winners = []
     for s_i, batches in enumerate(plan.surfaces):
         if plan.clear_flags[s_i]:
-            fb = args["surfaces"][s_i]["clear"].expand(H, W, 4).clone()
-        depth = torch.ones((H, W), dtype=torch.float32, device=device)
+            fb = _band_clear(plan, layout, args["surfaces"][s_i]["clear"])
+        depth = _band_fill(plan, layout, 1.0)
         for b in batches:
             _s, _b, tris, valid, fctx = next(products)
             fn, cull = b.pipeline.fragment_fn, b.pipeline.cull_mode
             if plan.backend == "tile":
                 packed, v, bbox = _setup_batch(plan, tris, valid, cull,
                                                cap=cap)
-                depth2, winner, num, den = raster.rasterize_packed(
-                    packed, v, bbox, H, W, depth=depth)
-                fb = raster.shade_from_planes_ranges(
-                    winner, num, den, fb, [(0, packed.shape[0], fn, fctx)])
+                depth2, fb, winner = _raster_pass(
+                    plan, layout, packed, v, bbox, depth, fb,
+                    [(0, packed.shape[0], fn, fctx)])
             else:
+                # the oracle renders whole frames (a mesh needs the tile
+                # backend): one band
                 tris, v = rc.clip_near_capacity(tris, valid, cap)
                 tc = rc.triangle_setup(tris.clip, tris.vary, v, W, H, cull,
                                        planar=tris.planar, oracle=True)
-                depth2, winner = raster_ref.rasterize_visibility(
-                    tc, H, W, depth=depth)
-                fb = raster_ref.shade(tc, winner, fb, fn, ctx=fctx)
+                d, w = raster_ref.rasterize_visibility(tc, H, W,
+                                                       depth=depth[0])
+                fb = [raster_ref.shade(tc, w, fb[0], fn, ctx=fctx)]
+                depth2, winner = [d], [w]
             winners.append(winner)
             # a depth_write=False batch still tests its triangles against
             # each other (the documented deviation, pipeline.py)
@@ -367,17 +416,27 @@ def _sequential_passes(plan: _FramePlan, args: dict, products, device,
 
 def _frame(plan: _FramePlan, args: dict, device, clip_scale: int):
     """One frame. Returns (fb f32[H, W, 4], winners tuple: one winner
-    buffer per raster pass when ``plan.debug_winner``)."""
+    buffer per raster pass when ``plan.debug_winner``), each a
+    :class:`Banded` on a mesh."""
     world = vs.compose_world_transforms(args["locals"], plan.levels,
                                         plan.parents)
     products = _batch_vertex_products(plan, args, world, device)
     cap = CLIP_CAPACITY * clip_scale
+    layout = _band_layout(plan, device)
+    fb = (split_bands(args["fb"], [d for _y0, d in layout])
+          if plan.mesh is not None else [args["fb"]])
     if plan.merged:
-        fb, winner = _merged_pass(plan, args, products, device, cap)
+        fb, winner = _merged_pass(plan, args, products, layout, fb, cap)
         winners = [] if winner is None else [winner]
     else:
-        fb, winners = _sequential_passes(plan, args, products, device, cap)
-    return fb, (tuple(winners) if plan.debug_winner else ())
+        fb, winners = _sequential_passes(plan, args, products, layout, fb,
+                                         cap)
+
+    def frame(bands):
+        return bands[0] if plan.mesh is None else Banded(bands)
+
+    return frame(fb), (tuple(frame(w) for w in winners)
+                       if plan.debug_winner else ())
 
 
 # --------------------------------------------------------------------------
@@ -492,11 +551,23 @@ class Draw:
                 raise ValueError("surface targets a different window")
             s.rebuild()
             surfaces.append(_build_batches(s))
+        mesh = rend.mesh
+        if mesh is not None:
+            if backend != "tile":
+                raise ValueError(
+                    "row-band rendering (Renderer mesh=...) requires the "
+                    "tile backend (raster_backend=\"auto\")")
+            if "rows" not in mesh.axis_names:
+                raise ValueError("renderer mesh needs a 'rows' axis")
+            if window.height % mesh.shape["rows"]:
+                raise ValueError(
+                    f"window height {window.height} not divisible by "
+                    f"mesh rows {mesh.shape['rows']}")
         plan = _FramePlan(
             parents=parents, levels=levels, surfaces=surfaces,
             clear_flags=tuple(c is not None for _, c in self._items),
             width=window.width, height=window.height, backend=backend,
-            debug_winner=rend.debug_winner)
+            debug_winner=rend.debug_winner, mesh=mesh)
         plan.merged = _mergeable(plan)
         if len(self._plans) >= PLAN_CACHE_SIZE:
             del self._plans[next(iter(self._plans))]

@@ -16,6 +16,12 @@ write flushing the 50 MB L2 before each call (the median of as many). The varian
 were measured and not kept: an edit that no longer applies to the source
 raises, and is then updated or dropped.
 
+First, on 12 sets of 50,000 thin slivers (``utils.trisets.band_slivers``)
+in the last 270-row band of a 7680x4320 frame (y0 = 4050), the source is
+held bit for bit against K1's plain version, and each of ``FAULTS``, a
+reject fault planted at the band offset, reports the pixels it changes;
+a fault in ``MUST_CATCH`` that changes none raises.
+
 The timeline is the source with a stamp of the card's global timer at
 the start and end of every CTA: per shape, the kernel's span, the CTAs'
 durations (empty tiles, the longest tile), and how many CTAs, and how
@@ -123,7 +129,7 @@ _LIST_STAGING = [
           for (int sb = 0; sb < SUBS; ++sb) {
             const float xc = __int2float_rn(blockIdx.x * TILE_W +
                                             (sb % SUBS_X) * SUB) + 0.5f * SUB;
-            const float yc = __int2float_rn(blockIdx.y * TILE_H +
+            const float yc = __int2float_rn(y0 + blockIdx.y * TILE_H +
                                             (sb / SUBS_X) * SUB) + 0.5f * SUB;
             if (plane(a, b, cc, xc, yc) < lim) keep &= ~(1u << sb);
           }
@@ -172,7 +178,7 @@ _LIST_STAGING = [
             const int sb = warp * WARP_SUBS + j;
             const float xc = __int2float_rn(blockIdx.x * TILE_W +
                                             (sb % SUBS_X) * SUB) + 0.5f * SUB;
-            const float yc = __int2float_rn(blockIdx.y * TILE_H +
+            const float yc = __int2float_rn(y0 + blockIdx.y * TILE_H +
                                             (sb / SUBS_X) * SUB) + 0.5f * SUB;
             if (plane(a, b, cc, xc, yc) < lim) keep &= ~(1u << j);
           }
@@ -203,10 +209,9 @@ def _tile_order(bx: str, by: str, prologue: str = "", host: str = ""):
                     "  const int tid = threadIdx.x;\n" + prologue
                     + f"  const int bx_ = {bx};\n  const int by_ = {by};\n")
         if host:
-            src = _edit(src, "int ntx, int nty, int vec) {",
-                        "int ntx, int nty, int vec, int stride) {")
-            src = _edit(src, "        width, ntx, nty, vec);",
-                        "        width, ntx, nty, vec, stride);")
+            src = _edit(src, "int nty, int vec) {",
+                        "int nty, int vec, int stride) {")
+            src = _edit(src, " ntx, nty, vec);", " ntx, nty, vec, stride);")
             src = _edit(src, "  if (ntx > 0 && nty > 0) {\n",
                         host + "  if (ntx > 0 && nty > 0) {\n")
         return src
@@ -230,8 +235,32 @@ def _scatter(group: int):
     return _tile_order("tile_ % ntx", "tile_ / ntx", prologue, host)
 
 
+# K1 without row bands: pixel rows and the reject's sub-block centres
+# band-local (the same output at y0 = 0)
+_NO_Y0 = [
+    ("__int2float_rn(y0 + y)", "__int2float_rn(y)"),
+    ("__int2float_rn(y0 + blockIdx.y * TILE_H +",
+     "__int2float_rn(blockIdx.y * TILE_H +"),
+]
+
+# the reject's bounds converted in the kernel from ints, as first written
+# for row bands (a 4-byte spill at the 56-register cap)
+_BOUNDS_IN_KERNEL = [
+    ("int y0, float xmax,\n                   float ymax, int ntx,",
+     "int y0, int ymax_rows,\n                   int ntx,"),
+    ("  const unsigned below = (1u << lane) - 1u;\n",
+     "  const float xmax = __int2float_rn(ntx * TILE_W);\n"
+     "  const float ymax = __int2float_rn(ymax_rows);\n"
+     "  const unsigned below = (1u << lane) - 1u;\n"),
+    ("""        width, y0, static_cast<float>(ntx * TILE_W),
+        static_cast<float>(ymax), ntx, nty, vec);""",
+     "        width, y0, ymax, ntx, nty, vec);"),
+]
+
 VARIANTS = {
     "source": lambda src: src,
+    "no_y0": _edits(*_NO_Y0),
+    "bounds_in_kernel": _edits(*_BOUNDS_IN_KERNEL),
     "stream_stores": _edits(*_STREAM_STORES),
     "stream_all": _edits(*_STREAM_ALL),
     "list_staging": _edits(*_LIST_STAGING),
@@ -246,6 +275,20 @@ VARIANTS = {
     "scatter4_order": _scatter(4),
     "scatter16_order": _scatter(16),
 }
+
+# reject faults at a band offset, run on the last-band slivers (each
+# planted fault either changes their pixels or is reported as not caught):
+# the sub-block centres band-local, which rejects sub-blocks that hold
+# passing pixels and must be caught; and `ymax` band-local (y0 left out
+# of the rounding-error bound), which no set has caught
+FAULTS = {
+    "reject_rows_band_local": _edits(_NO_Y0[1]),
+    "ymax_band_local": _edits(("static_cast<float>(ymax), ntx",
+                               "static_cast<float>(ymax - y0), ntx")),
+}
+MUST_CATCH = ("reject_rows_band_local",)
+# the last 270-row band of a 7680x4320 frame: sliver sets (seeds) x size
+SLIVER_FRAME, SLIVER_BAND, SLIVER_SETS, SLIVERS = (4320, 7680), 270, 12, 50000
 
 # the source with a global-timer stamp at each CTA's start and end
 _TIMELINE = [
@@ -296,12 +339,12 @@ def _build(name: str, src: str):
             if "registers" in ln or "spill" in ln]
     lib = ctypes.CDLL(so)
     p = ctypes.c_void_p
-    lib.raster_tile_launch.argtypes = [p] * 7 + [ctypes.c_int] * 2 + [p]
+    lib.raster_tile_launch.argtypes = [p] * 7 + [ctypes.c_int] * 4 + [p]
     lib.raster_tile_launch.restype = ctypes.c_int
     return name, lib, regs
 
 
-def _launch(lib, inputs):
+def _launch(lib, inputs, y0=0):
     packed, index, starts, counts, depth = inputs
     H, W = depth.shape
     fused = torch.empty((6, H, W), device=depth.device)
@@ -309,7 +352,8 @@ def _launch(lib, inputs):
     err = lib.raster_tile_launch(
         packed.data_ptr(), index.data_ptr(), starts.data_ptr(),
         counts.data_ptr(), depth.data_ptr(), fused.data_ptr(),
-        winner.data_ptr(), H, W, torch.cuda.current_stream().cuda_stream)
+        winner.data_ptr(), H, W, y0, y0 + -(-H // rk.TILE_H) * rk.TILE_H,
+        torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"launch failed: CUDA error {err}")
     return fused, winner
@@ -362,6 +406,56 @@ def _frame1_inputs(make_app):
     return store[0]
 
 
+def _sliver_inputs(seed):
+    """y0 and K1's inputs for a set of ``band_slivers`` in the last band
+    of the sliver frame."""
+    from ..ops import raster
+    from ..ops import raster_common as rc
+    from ..utils.trisets import band_slivers
+    (H, W), band = SLIVER_FRAME, SLIVER_BAND
+    y0, dev = H - band, torch.device("cuda")
+    clip, vary = band_slivers(SLIVERS, seed, H, W, y0)
+    clip_t = torch.from_numpy(clip).to(dev)
+    tc = rc.triangle_setup(clip_t, torch.from_numpy(vary).to(dev),
+                           torch.ones(SLIVERS, dtype=torch.bool, device=dev),
+                           W, H, "none")
+    packed = rc.pack_coeffs_full(tc)
+    index, starts, counts = raster.bin_packed(
+        packed, tc.valid, raster.viewport_bbox(clip_t, W, H), band, W, y0=y0)
+    return y0, (packed, index, starts, counts,
+                torch.ones((band, W), device=dev))
+
+
+def _faults(libs):
+    """The source against K1's plain version, and each planted fault
+    against both, on every sliver set: the pixels (winner or any plane
+    bit) that each fault changes."""
+    changed = dict.fromkeys(FAULTS, 0)
+    pairs = 0
+    for seed in range(SLIVER_SETS):
+        y0, inputs = _sliver_inputs(seed)
+        pairs += int(inputs[1].shape[0])
+        rfused, rwinner = rk.rasterize_tiles_reference(*inputs, y0=y0)
+        fused, winner = _launch(libs["source"], inputs, y0)
+        if not (torch.equal(winner, rwinner) and torch.equal(
+                fused.view(torch.int32), rfused.view(torch.int32))):
+            raise AssertionError(f"the source differs from K1's plain "
+                                 f"version on sliver set {seed}")
+        for name in FAULTS:
+            fused, winner = _launch(libs[name], inputs, y0)
+            diff = (winner != rwinner) | (fused.view(torch.int32)
+                                          != rfused.view(torch.int32)).any(0)
+            changed[name] += int(diff.sum())
+    print(f"sliver sets: {SLIVER_SETS} x {SLIVERS} slivers at y0 {y0} of "
+          f"{SLIVER_FRAME[1]}x{SLIVER_FRAME[0]} ({pairs} (tile, record) "
+          f"pairs), the source bit-equal to K1's plain version")
+    for name, pixels in changed.items():
+        print(f"fault {name}: {pixels} pixels changed "
+              f"({'caught' if pixels else 'not caught'})", flush=True)
+        if name in MUST_CATCH and not pixels:
+            raise AssertionError(f"the sliver sets do not catch {name}")
+
+
 def _timeline(lib, label, inputs):
     lib.k1_lab_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
     counts = inputs[3].cpu().numpy()
@@ -412,12 +506,14 @@ def main(argv=None) -> int:
     with open(rk._SOURCE) as f:
         src = f.read()
     sources = {n: VARIANTS[n](src) for n in names}
+    sources.update((n, fault(src)) for n, fault in FAULTS.items())
     sources["timeline"] = _edits(*_TIMELINE)(src)
     with ThreadPoolExecutor(8) as pool:
         built = list(pool.map(lambda kv: _build(*kv), sources.items()))
     for name, _lib, regs in built:
         print(f"  {name}: {regs}", flush=True)
     libs = {name: lib for name, lib, _regs in built}
+    _faults(libs)
 
     from ..app.demo import DemoApp
     from ..app.stress import StressApp

@@ -46,3 +46,41 @@ def crowded_triangles(n, seed, H, W, box, w_range=(0.8, 5.0)):
                            w[..., None]], axis=-1)
     vary = rng.uniform(0, 1, (n, 3, 4)).astype(np.float32)
     return clip, vary
+
+
+def band_slivers(n, seed, H, W, y0, w_range=(0.8, 5.0)):
+    """Clockwise slivers, 8-64 pixels long and at most half a pixel wide,
+    in the rows [y0, H) of an H x W frame, lifted to clip space: K1's
+    reject at a band offset. Each starts on a corner of a 4x4 sub-block
+    (or a pixel centre) and runs along a sub-block border, across it at
+    a random angle, or along a pixel-centre row, so its edges graze the
+    borders and centres that the reject and the top-left rule test."""
+    rng = np.random.default_rng(seed)
+    start = np.stack([4.0 * rng.integers(0, W // 4, n),
+                      y0 + 4.0 * rng.integers(0, (H - y0) // 4, n)], -1)
+    start += rng.choice([0.0, 0.5], (n, 1)) + rng.choice(
+        [0.0, 1e-4, -1e-4, 1e-2], (n, 2))
+    angle = rng.uniform(0.0, 2.0 * np.pi, n)
+    kind = rng.integers(0, 3, n)
+    angle = np.where(kind == 0, 0.5 * np.pi * rng.integers(0, 4, n), angle)
+    angle = np.where(kind == 1, np.pi * rng.integers(0, 2, n), angle)
+    direction = np.stack([np.cos(angle), np.sin(angle)], -1)
+    normal = np.stack([-direction[:, 1], direction[:, 0]], -1)
+    length = rng.uniform(8.0, 64.0, (n, 1))
+    width = rng.uniform(1e-3, 0.5, (n, 1))
+    pix = np.stack([start, start + length * direction,
+                    start + 0.5 * length * direction + width * normal], 1)
+    pix[..., 0] = np.clip(pix[..., 0], 0.0, W)
+    pix[..., 1] = np.clip(pix[..., 1], y0, H)
+    ndc = np.stack([2.0 * pix[..., 0] / W - 1.0,
+                    1.0 - 2.0 * pix[..., 1] / H], -1).astype(np.float32)
+    d1 = ndc[:, 1] - ndc[:, 0]
+    d2 = ndc[:, 2] - ndc[:, 0]
+    flip = d1[:, 0] * (-d2[:, 1]) - (-d1[:, 1]) * d2[:, 0] < 0
+    ndc[flip] = ndc[flip][:, ::-1]
+    z = rng.uniform(0.1, 0.9, (n, 3)).astype(np.float32)
+    w = rng.uniform(*w_range, (n, 3)).astype(np.float32)
+    clip = np.concatenate([ndc * w[..., None], (z * w)[..., None],
+                           w[..., None]], axis=-1)
+    vary = rng.uniform(0, 1, (n, 3, 4)).astype(np.float32)
+    return clip, vary

@@ -28,6 +28,7 @@ PORT_MODULES = [
     "myrenderer_tpu_torch.ops",
     "myrenderer_tpu_torch.ops.raster_ref",
     "myrenderer_tpu_torch.ops.sampling",
+    "myrenderer_tpu_torch.parallel",
     "myrenderer_tpu_torch.renderer",
     "myrenderer_tpu_torch.state",
     "myrenderer_tpu_torch.tools.k1_lab",

@@ -17,11 +17,16 @@ def source():
         return f.read()
 
 
-@pytest.mark.parametrize("name", list(k1_lab.VARIANTS))
+@pytest.mark.parametrize("name", list(k1_lab.VARIANTS) + list(k1_lab.FAULTS))
 def test_variant_edits_apply(name, source):
-    out = k1_lab.VARIANTS[name](source)
+    out = {**k1_lab.VARIANTS, **k1_lab.FAULTS}[name](source)
     assert (out == source) == (name == "source")
     assert "raster_tile_launch" in out
+
+
+def test_faults_to_catch_are_planted():
+    assert set(k1_lab.MUST_CATCH) <= set(k1_lab.FAULTS)
+    assert not set(k1_lab.FAULTS) & set(k1_lab.VARIANTS)
 
 
 def test_timeline_edits_apply(source):
