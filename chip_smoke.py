@@ -19,22 +19,23 @@ at the first failed phase:
    shape;
 4. goldens through K1: DemoApp(128, 128) frames 1 and 31 against
    tests/goldens (max diff <= 1, > 99.9 % of values exact);
-5. the slice: DemoApp(1920, 1080) for 1 warm-up plus 60 timed frames,
-   exactly one K1 launch per frame, ms/frame beside the plain-version
-   path's; K1 alone at the frame-1 shapes beside its plain version and
-   its bound;
+5. the slice: DemoApp(1920, 1080) for 1 warm-up plus 60 timed frames
+   (CUDA graph replays), exactly one K1 launch per frame, ms/frame
+   beside the plain-version path's (eager); K1 alone at the frame-1
+   shapes beside its plain version and its bound;
 6. the stress scene: StressApp at full width (3840x2160, terrain 708
    plus 10,000 instanced markers: 1,012,528 triangles, two batches, one
-   merged pass) for 1 warm-up plus 20 timed frames, exactly one K1
-   launch per frame, a finite framebuffer and the peak device memory;
+   merged pass) for 1 eager frame plus 20 timed frames (graph
+   replays), exactly one K1 launch per frame, a finite framebuffer and
+   the peak device memory (of the eager frame 1);
    K1 against its plain version on frame 1's records (winners exact,
    depth and planes 0 ulp); a few frames of the plain-version path, its
    last frame bit-equal to the K1 path's; K1 alone at these shapes
    beside its plain version and its bound, with every tile emptied (its
    memory floor) and with every record invalid (its records copied and
    staged, no list walked); where the frame's time goes
-   (a fence around each layer, and the device's busy share, ops and
-   groups from torch.profiler);
+   (a fence around each layer of the eager frame, and the eager
+   frame's device busy share, ops and groups from torch.profiler);
 7. the sequential frame path on the card: a later surface that clears
    and a depth_write=False pipeline, one K1 launch per batch, the
    framebuffer and every pass's winners equal to the CPU's bit for bit;
@@ -53,7 +54,19 @@ at the first failed phase:
    a card, bit-equal and timed beside one device; ms/frame of each beside
    the single-device frame in turns in the same call, and host syncs
    per frame by the line that made them;
-11. a JSON line of the kernels, the card line, and the last line
+11. the compiled frame (``renderer/compiled.py``): the 1080p demo (31
+   frames), the demo on 4 bands of one card (31) and the stress scene
+   (20) as CUDA graph replays bit-equal, framebuffer and winners, to
+   the eager frame after every frame, one K1 launch a band and frame;
+   host syncs of a steady-state frame by line (0 on the graph, 1 under
+   strict_overflow); ms/frame graph against eager in turns; device busy
+   share, device ops a frame and K1's time inside the replay from
+   torch.profiler; each graph's capture time and pool memory; the
+   capacity ladder on the card (a starved first frame recovered bit for
+   bit, a late overflow detected through the asynchronous flag queue);
+   a vertex function that calls ``.item()`` makes Draw.end raise. No
+   frame any phase renders raises an overflow flag at big scale 1;
+12. a JSON line of the kernels, the card line, and the last line
    {"ok": true, "device": {...}}.
 
 K1's bound at a shape is the larger of its bytes over 3.35 TB/s (what
@@ -134,9 +147,19 @@ def bin_random(n, seed, H, W, dup, dev, box=None, reverse=False):
     if reverse:
         packed, valid = packed.flip(0), valid.flip(0)
         bbox = tuple(b.flip(0) for b in bbox)
-    index, starts, counts = raster.bin_packed(packed, valid, bbox, H, W)
+    index, starts, counts, overflow = raster.bin_packed(packed, valid, bbox,
+                                                        H, W)
+    if bool(overflow):
+        raise AssertionError("a random set outgrew the pair capacity")
     depth = torch.ones((H, W), dtype=torch.float32, device=dev)
-    return packed, index, starts, counts, depth
+    return trimmed((packed, index, starts, counts, depth))
+
+
+def trimmed(inputs):
+    """K1's inputs with the index cut to its live pairs (binning sizes it
+    to a static capacity; K1 reads only the tiles' segments)."""
+    packed, index, starts, counts, depth = inputs
+    return packed, index[:int(counts.sum())], starts, counts, depth
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -294,10 +317,10 @@ def capture_k1_inputs(store: list, records: list = None):
         store.append(inputs)
         return orig(*inputs, **kw)
 
-    def wrapped_pass(packed, valid, bbox, *args):
+    def wrapped_pass(packed, valid, bbox, *args, **kw):
         if records is not None:
             records.append((packed, valid, bbox))
-        return orig_pass(packed, valid, bbox, *args)
+        return orig_pass(packed, valid, bbox, *args, **kw)
 
     raster.rasterize_tiles = wrapped
     raster.rasterize_bands = wrapped_pass
@@ -359,8 +382,8 @@ def report_turns(label, ms: dict, launches: dict, syncs: dict, n: int,
               f"{float(np.median(rounds)):.3f} ms/frame (median of rounds "
               f"{', '.join(f'{r:.3f}' for r in rounds)}; {n} frames each), "
               f"{launches[k] / (n * len(rounds)):.0f} K1 launches a frame, "
-              f"{sum(syncs[k].values())} host syncs a frame (one raster "
-              f"pass); card: {card}")
+              f"{sum(syncs[k].values())} host syncs a steady-state frame; "
+              f"card: {card}")
         print(f"    syncs by line: " + ", ".join(
             f"{site} x{c}" for site, c in sorted(syncs[k].items())))
 
@@ -477,6 +500,7 @@ def sequential_scene(device):
         draw.end()
         return window.framebuffer, draw.last_winners
 
+    frame.draw = draw
     return frame
 
 
@@ -530,6 +554,7 @@ def textured_quad_frame(device, size=128):
     draw.clear((0, 0, 1, 1))
     draw.draw_surface(surf)
     draw.end()
+    assert_no_flags(rend, "textured quad")
     return window.read_pixels()
 
 
@@ -559,12 +584,15 @@ def banded_k1_checks(frames, bands: int) -> float:
         band = H // bands
         for k in range(1, bands):
             y0 = k * band
-            index, starts, counts = raster.bin_packed(packed, valid, bbox,
-                                                      band, W, y0=y0)
+            index, starts, counts, overflow = raster.bin_packed(
+                packed, valid, bbox, band, W, y0=y0)
+            if bool(overflow):
+                raise AssertionError(f"{label} band {k} outgrew the pair "
+                                     "capacity")
             depth = torch.full((band, W), depth_in, device=packed.device)
-            err = max(err, compare_k1((packed, index, starts, counts, depth),
-                                      f"{label} band {k} of {bands} "
-                                      f"(y0 {y0})", y0=y0))
+            err = max(err, compare_k1(
+                trimmed((packed, index, starts, counts, depth)),
+                f"{label} band {k} of {bands} (y0 {y0})", y0=y0))
     return err
 
 
@@ -582,20 +610,24 @@ def sliver_band_check(dev) -> float:
                            torch.ones(clip.shape[0], dtype=torch.bool,
                                       device=dev), W, H, "none")
     packed = rc.pack_coeffs_full(tc)
-    index, starts, counts = raster.bin_packed(
+    index, starts, counts, overflow = raster.bin_packed(
         packed, tc.valid, raster.viewport_bbox(clip_t, W, H), band, W, y0=y0)
+    if bool(overflow):
+        raise AssertionError("the slivers outgrew the pair capacity")
     depth = torch.ones((band, W), device=dev)
-    return compare_k1((packed, index, starts, counts, depth),
+    return compare_k1(trimmed((packed, index, starts, counts, depth)),
                       f"slivers 7680x4320 last band (y0 {y0})", y0=y0)
 
 
 def syncs_per_frame(app) -> collections.Counter:
-    """Host syncs of one frame, as the CUDA sync debug mode reports
-    them, counted by the source line that made each (a blocking copy
-    from pageable host memory counts as one). The second of two frames
-    is counted: the first may also count the mode's own set-up."""
+    """Host syncs of one steady-state frame, as the CUDA sync debug mode
+    reports them, counted by the source line that made each (a blocking
+    copy from pageable host memory counts as one). The fourth of four
+    frames is counted: the first may count the mode's own set-up, and
+    the three after a new frame plan check its overflow flag
+    synchronously."""
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(4):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -688,9 +720,399 @@ def bands_over_cards(single, single_frames, card):
                       apps[1].draw.last_winners[0],
                       f"stress 3840x2160 frame 1 on {n} cards")
     ms, launches = time_in_turns(apps, BAND_STRESS_FRAMES)
+    for k, app in apps.items():
+        assert_no_flags(app, f"stress 3840x2160 on {k} cards")
     report_turns("stress 3840x2160, one band a card", ms, launches,
                  {k: syncs_per_frame(a) for k, a in apps.items()},
                  BAND_STRESS_FRAMES, card)
+
+
+def assert_no_flags(app, label):
+    """No overflow flag in any frame ``app.draw`` rendered at big scale
+    1: the scale never rose, and the last frame's flag and every flag
+    still queued are clear (read back here, between frames). ``app`` is
+    anything with a ``draw``: an app, a frame function, a renderer."""
+    draw = app.draw if hasattr(app, "draw") else app.draws[0]
+    flags = [draw.last_overflow.cpu().numpy()] + [
+        np.asarray(f) for f in draw._pending_overflow]
+    if draw.big_scale != 1 or any(f.any() for f in flags):
+        raise AssertionError(f"{label}: an overflow flag at big scale 1 "
+                             f"(big scale now {draw.big_scale})")
+
+
+GROUPS = (("torch.cat copies", "CatArrayBatchedCopy"),
+          ("elementwise kernels", "elementwise_kernel"),
+          ("gathers", "gather"), ("K1", "raster_tile_kernel"),
+          ("host-to-device copies", "Memcpy HtoD"))
+
+
+def print_groups(by_name: dict, frames: int):
+    for group, key in GROUPS:
+        rows = [v for name, v in by_name.items() if key in name]
+        print(f"    group {group}: "
+              f"{sum(t for t, _ in rows) / 1e3 / frames:.3f} ms/frame, "
+              f"{sum(n for _, n in rows) // frames}x")
+
+
+def profile_frames(app, frames: int, name: str):
+    """torch.profiler over ``frames`` unfenced frames: (wall ms/frame,
+    device busy ms/frame, device ops/frame, {kernel: (us, count)})."""
+    from myrenderer_tpu_torch.utils.profiling import trace
+    torch.cuda.synchronize()
+    with trace(os.path.join(REPO, "build", name)) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            app.tick()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000.0 / frames
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    device_ms = sum(t for t, _ in by_name.values()) / 1e3 / frames
+    return wall_ms, device_ms, len(kernels) / frames, by_name
+
+
+def frames_equal(a, b, label: str, frame: int):
+    """Two apps' framebuffers and winners bit-equal after a frame."""
+    fa, fb = a.window.framebuffer, b.window.framebuffer
+    fa = fa.to("cuda") if hasattr(fa, "bands") else fa
+    fb = fb.to("cuda") if hasattr(fb, "bands") else fb
+    wa = [w.to("cuda") if hasattr(w, "bands") else w
+          for w in a.draw.last_winners]
+    wb = [w.to("cuda") if hasattr(w, "bands") else w
+          for w in b.draw.last_winners]
+    if not (torch.equal(fa.view(torch.int32), fb.view(torch.int32))
+            and len(wa) == len(wb) == 1 and torch.equal(wa[0], wb[0])):
+        raise AssertionError(f"{label}: frame {frame} differs")
+
+
+def graph_against_eager(make_app, frames: int, label: str):
+    """``frames`` frames of a graph app and an eager app built alike,
+    framebuffers and winners bit-equal after every frame, K1 launched
+    bands-many times a frame by each. Returns (graph app, eager app)."""
+    from myrenderer_tpu_torch.ops import raster_cuda as rk
+    apps = {"graph": make_app(), "eager": make_app()}
+    apps["eager"].draw._eager_frames = True
+    launches = dict.fromkeys(apps, 0)
+    for app in apps.values():
+        app.renderer.debug_winner = True
+    for frame in range(1, frames + 1):
+        for mode, app in apps.items():
+            rk.K1.launches = 0
+            app.tick()
+            launches[mode] += rk.K1.launches
+        frames_equal(apps["graph"], apps["eager"], label, frame)
+    bands = n_bands(apps["graph"])
+    for mode, app in apps.items():
+        if launches[mode] != bands * frames:
+            raise AssertionError(f"{label} ({mode}): K1 launched "
+                                 f"{launches[mode]} times in {frames} "
+                                 f"frames of {bands} bands")
+        assert_no_flags(app, f"{label} ({mode})")
+        app.renderer.debug_winner = False
+    plan = next(iter(apps["graph"].draw._plans.values()))
+    if plan.compiled is None:
+        raise AssertionError(f"{label}: no CUDA graph was captured")
+    print(f"  {label}: graph replay and eager frames bit-equal, "
+          f"framebuffer and winners, in each of {frames} frames; "
+          f"{bands} K1 launch{'es' if bands > 1 else ''} a frame each; no "
+          f"overflow flag at big scale 1")
+    return apps["graph"], apps["eager"]
+
+
+def n_bands(app) -> int:
+    mesh = app.renderer.mesh
+    return 1 if mesh is None else mesh.shape["rows"]
+
+
+def graph_turns(apps: dict, n: int, bands: int, label: str, card: str):
+    """ms/frame of {"graph": app, "eager": app} in turns (``n`` fenced
+    frames a turn, BAND_ROUNDS rounds), K1 launches held to ``bands`` a
+    frame. Returns {mode: median}."""
+    from myrenderer_tpu_torch.ops import raster_cuda as rk
+    ms = {k: [] for k in apps}
+    for _ in range(BAND_ROUNDS):
+        for mode, app in apps.items():
+            rk.K1.launches = 0
+            ms[mode].append(time_frames(app, n))
+            if rk.K1.launches != bands * n:
+                raise AssertionError(f"{label} ({mode}): {rk.K1.launches} "
+                                     f"K1 launches in {n} frames")
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"  {label}: graph {med['graph']:.3f} ms/frame (rounds "
+          f"{', '.join(f'{r:.3f}' for r in ms['graph'])}), eager "
+          f"{med['eager']:.3f} (rounds "
+          f"{', '.join(f'{r:.3f}' for r in ms['eager'])}), {n} frames a "
+          f"turn, median of {BAND_ROUNDS} rounds; {bands} K1 launch"
+          f"{'es' if bands > 1 else ''} a frame; card: {card}")
+    return med
+
+
+LADDER_SIZE = 256
+LADDER_STARVED = 64   # pairs at big scale 1: 48 small fit, 192 tall do not
+
+
+def ladder_app(tall: bool = False):
+    """A 256x256 frame of 48 small triangles, three in each 16-pixel tile
+    column of the first tile row (48 (tile, record) pairs); stretched x8
+    in y (``tall``) each spans 4 tile rows (192 pairs). Returns an app
+    (``tick``, ``window``, ``draw``, ``renderer``, ``tall()``)."""
+    import types
+    from myrenderer_tpu_torch import (BindingLayout, Core, Draw, Instance,
+                                      Pipeline, Renderer, Surface,
+                                      VertexBuffer, VertexLayout, math3d)
+    from myrenderer_tpu_torch.ops.vertex_stage import matvec4
+    from myrenderer_tpu_torch.renderer.pipeline import BUILTIN_TRANSFORM
+    core = Core(fixed_timestep=1.0 / 60.0)
+    window = core.create_window(LADDER_SIZE, LADDER_SIZE, "ladder")
+    rend = Renderer(core, device="cuda")
+    rend.adopt_window(window)
+    layout = VertexLayout.create([("pos", 3), ("color", 3)])
+
+    def vfn(ctx):
+        p, c = ctx.attr("pos"), ctx.attr("color")
+        one = torch.ones((), dtype=torch.float32, device=p.device)
+        return (matvec4(ctx.world, torch.stack([p[0], p[1], p[2], one])),
+                torch.stack([c[0], c[1], c[2], one]))
+
+    pipe = Pipeline.create(rend, vertex_fn=vfn, vertex_layout=layout,
+                           bindings=[BindingLayout(0, BUILTIN_TRANSFORM)])
+    rows = []
+    for col in range(LADDER_SIZE // 16):
+        for k in range(3):
+            x0 = (16 * col + 1 + 5 * k) / LADDER_SIZE
+            for x, y in ((x0, 1.0), (x0 + 3.0 / LADDER_SIZE, 1.0),
+                         (x0, 6.0)):
+                rows.append([x, y / LADDER_SIZE, 1.0, 0.3 * k, 0.06 * col,
+                             1.0])
+    rows = np.asarray(rows, np.float32)
+    vb = VertexBuffer.new(rend, 0, rows.shape[0] // 3, layout)
+    vb.write_vertices(rows)
+    node = Instance.create_node(rend, pipeline=pipe)
+    node.get_backing().set_vertex_buffer(vb)
+    surf = Surface.create_window_scene(rend, window, node)
+    surf.set_perspective(math3d.projection_2d(
+        left=0.0, right=1.0, bottom=1.0, top=0.0, near=0.1, far=2.0))
+    draw = Draw.create(rend)
+    rend.debug_winner = True
+
+    def stretch():
+        node.set_xform(np.diag([1.0, 8.0, 1.0, 1.0]).astype(np.float32))
+
+    def tick():
+        draw.begin()
+        draw.clear((0.0, 0.0, 1.0, 1.0))
+        draw.draw_surface(surf)
+        draw.end()
+        rend.update()
+
+    if tall:
+        stretch()
+    return types.SimpleNamespace(tick=tick, window=window, draw=draw,
+                                 renderer=rend, tall=stretch)
+
+
+def ladder_on_card(card: str):
+    """The capacity ladder on the card, through the pair capacity's
+    starve hook: (1) the 1080p demo's first frame outgrows a starved
+    capacity in the synchronous window: big scale 4, framebuffer equal
+    to the unstarved frame's, winners equal to an unstarved frame at big
+    scale 4 (ids shift with the scale: each batch reserves 2 * 128 *
+    big_scale clip slots); (2) a late overflow in graph replays is
+    detected through the asynchronous flag queue within OVERFLOW_WINDOW
+    frames and the detecting frame re-rendered."""
+    from myrenderer_tpu_torch.app.demo import DemoApp
+    from myrenderer_tpu_torch.ops import raster
+    frames = {}
+    for name, scale, starve in (("unstarved", 1, None),
+                                ("unstarved at big scale 4", 4, None),
+                                ("starved", 1, 20_000)):
+        app = DemoApp(1920, 1080, device="cuda")
+        app.renderer.debug_winner = True
+        app.draw.big_scale = scale
+        raster._FORCE_PAIR_CAPACITY = starve
+        try:
+            app.tick()
+        finally:
+            raster._FORCE_PAIR_CAPACITY = None
+        frames[name] = (app.draw.big_scale,
+                        app.window.framebuffer.clone(),
+                        app.draw.last_winners[0].clone(),
+                        app.draw.last_overflow.cpu())
+        del app
+    scale, fb, win, ovf = frames["starved"]
+    _s1, fb1, win1, _o = frames["unstarved"]
+    _s4, _fb4, win4, _o = frames["unstarved at big scale 4"]
+    if not (scale == 4 and not ovf.any()
+            and torch.equal(fb.view(torch.int32), fb1.view(torch.int32))
+            and torch.equal(win, win4)):
+        raise AssertionError("the ladder did not recover the starved 1080p "
+                             "frame bit for bit")
+    print(f"  demo 1920x1080 frame 1 with 20,000 pair slots (60,872 "
+          f"pairs): flagged, big scale 1 -> {scale}, re-rendered: "
+          f"framebuffer bit-equal to the unstarved frame, winners equal "
+          f"to the unstarved frame at big scale 4 (and "
+          f"{'equal' if torch.equal(win, win1) else 'not equal'} to big "
+          f"scale 1's: ids shift with the scale)")
+    raster._FORCE_PAIR_CAPACITY = LADDER_STARVED
+    try:
+        late = ladder_app()
+        for _ in range(6):
+            late.tick()
+        if late.draw.big_scale != 1 or late.draw.last_overflow.any():
+            raise AssertionError("the small ladder scene overflowed")
+        late.tall()
+        detected = None
+        for i in range(late.draw.OVERFLOW_WINDOW + 2):
+            late.tick()
+            if late.draw.big_scale > 1:
+                detected = i
+                break
+        fresh = ladder_app(tall=True)
+        fresh.tick()
+    finally:
+        raster._FORCE_PAIR_CAPACITY = None
+    unstarved = ladder_app(tall=True)
+    unstarved.tick()
+    if detected is None or detected > late.draw.OVERFLOW_WINDOW:
+        raise AssertionError(f"late overflow detected after {detected} "
+                             "frames")
+    for ref, name in ((fresh, "a fresh starved frame"),
+                      (unstarved, "an unstarved frame")):
+        frames_equal(late, ref, f"late ladder against {name}", detected)
+    if late.draw.last_overflow.any() or fresh.draw.big_scale != 4:
+        raise AssertionError("the ladder scene's re-render still overflows")
+    print(f"  late overflow ({LADDER_SIZE}x{LADDER_SIZE}, 48 -> 192 pairs "
+          f"against {LADDER_STARVED} slots) in graph replays: detected "
+          f"through the asynchronous flag queue {detected} frame(s) after "
+          f"the first flagged frame (OVERFLOW_WINDOW "
+          f"{late.draw.OVERFLOW_WINDOW}), big scale -> "
+          f"{late.draw.big_scale}, the detecting frame re-rendered: equal "
+          f"to a fresh starved frame and to an unstarved one; card: {card}")
+
+
+def uncapturable_raises():
+    """A vertex function that reads a value back (``.item()``) makes
+    Draw.end raise on the card: the capture fails and nothing falls back
+    to an eager frame."""
+    app = ladder_app()
+    pipe = app.renderer.pipelines[0]
+    inner = pipe.vertex_fn
+    gain = torch.ones((), device="cuda")
+    pipe.vertex_fn = lambda ctx: (inner(ctx)[0] * gain.item(), inner(ctx)[1])
+    try:
+        app.tick()
+    except RuntimeError as e:
+        print(f"  a vertex function calling .item(): Draw.end raised "
+              f"RuntimeError ({str(e).splitlines()[0][:90]})")
+        return
+    raise AssertionError("a vertex function that reads back was captured "
+                         "or rendered eagerly")
+
+
+def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
+    """Phase 11: the frame as one CUDA graph replay, against the eager
+    frame."""
+    from myrenderer_tpu_torch.app.demo import DemoApp
+    from myrenderer_tpu_torch.app.stress import StressApp
+    from myrenderer_tpu_torch.parallel import make_mesh
+    out = {}
+    dev = torch.device("cuda", 0)
+    # (a) bit-equality, K1 launches a frame, no flag at big scale 1
+    demo = graph_against_eager(lambda: DemoApp(1920, 1080, device="cuda"),
+                               31, "demo 1920x1080, 31 frames")
+    bands = graph_against_eager(
+        lambda: DemoApp(1920, 1080, mesh=make_mesh(devices=[dev] * 4)),
+        31, "demo 1920x1080 on 4 bands of one card, 31 frames")
+    # (b) host syncs a steady-state frame, by line
+    syncs = {"demo graph": syncs_per_frame(demo[0]),
+             "demo eager": syncs_per_frame(demo[1]),
+             "demo 4 bands graph": syncs_per_frame(bands[0])}
+    demo[0].renderer.strict_overflow = True
+    syncs["demo graph, strict_overflow"] = syncs_per_frame(demo[0])
+    demo[0].renderer.strict_overflow = False
+    for label, counter in syncs.items():
+        print(f"  host syncs a steady-state frame, {label}: "
+              f"{sum(counter.values())}" + (" (" + ", ".join(
+                  f"{site} x{c}" for site, c in sorted(counter.items()))
+                  + ")" if counter else ""))
+    want = {"demo graph": 0, "demo 4 bands graph": 0,
+            "demo graph, strict_overflow": 1}
+    for label, n in want.items():
+        if sum(syncs[label].values()) != n:
+            raise AssertionError(f"{label}: {sum(syncs[label].values())} "
+                                 f"host syncs a frame, not {n}")
+    out["syncs"] = {k: sum(v.values()) for k, v in syncs.items()}
+    # (c) ms/frame in turns, graph against eager
+    out["demo_ms"] = graph_turns({"graph": demo[0], "eager": demo[1]},
+                                 BAND_FRAMES, 1, "demo 1920x1080", card)
+    out["demo_bands4_ms"] = graph_turns(
+        {"graph": bands[0], "eager": bands[1]}, BAND_FRAMES, 4,
+        "demo 1920x1080 on 4 bands of one card", card)
+    # (d) device busy share and device ops a frame, K1 inside the graph
+    for label, app in (("demo graph", demo[0]), ("demo eager", demo[1])):
+        wall, busy, ops, by_name = profile_frames(
+            app, PROFILE_FRAMES, "trace_" + label.replace(" ", "_"))
+        k1 = by_name.get(next((k for k in by_name
+                               if "raster_tile_kernel" in k), ""), (0, 0))
+        k1_ms = k1[0] / 1e3 / k1[1] if k1[1] else None
+        out[label] = {"wall_ms": wall, "busy_ms": busy, "ops": ops,
+                      "k1_ms": k1_ms}
+        print(f"  profiled {label}: {wall:.3f} ms/frame wall, device busy "
+              f"{busy:.3f} ms/frame ({100.0 * busy / wall:.1f} %), "
+              f"{ops:.0f} device ops/frame; K1 in these frames "
+              + (f"{k1_ms:.4f} ms ({k1[1]} launches)" if k1_ms else
+                 "not seen by the profiler")
+              + f" against {k1_alone['demo_1080p']:.4f} alone")
+    for label, app in (("demo", demo[0]), ("demo 4 bands", bands[0])):
+        cf = next(iter(app.draw._plans.values())).compiled
+        print(f"  {label}: capture {cf.capture_seconds:.3f} s, graph pool "
+              f"{cf.pool_bytes / 2**20:.1f} MiB, {cf.k1_launches} K1 "
+              f"launch(es) a replay")
+        out[f"{label} capture"] = (cf.capture_seconds, cf.pool_bytes)
+    del demo, bands
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the stress scene
+    stress = graph_against_eager(lambda: StressApp(device="cuda"), 20,
+                                 "stress 3840x2160, 20 frames")
+    syncs_s = syncs_per_frame(stress[0])
+    print(f"  host syncs a steady-state frame, stress graph: "
+          f"{sum(syncs_s.values())}")
+    if sum(syncs_s.values()):
+        raise AssertionError("the stress graph frame syncs the host")
+    out["stress_ms"] = graph_turns({"graph": stress[0], "eager": stress[1]},
+                                   BAND_STRESS_FRAMES, 1,
+                                   "stress 3840x2160", card)
+    for label, app in (("stress graph", stress[0]),
+                       ("stress eager", stress[1])):
+        wall, busy, ops, by_name = profile_frames(
+            app, PROFILE_FRAMES, "trace_" + label.replace(" ", "_"))
+        k1 = by_name.get(next((k for k in by_name
+                               if "raster_tile_kernel" in k), ""), (0, 0))
+        k1_ms = k1[0] / 1e3 / k1[1] if k1[1] else None
+        out[label] = {"wall_ms": wall, "busy_ms": busy, "ops": ops,
+                      "k1_ms": k1_ms}
+        print(f"  profiled {label}: {wall:.3f} ms/frame wall, device busy "
+              f"{busy:.3f} ms/frame ({100.0 * busy / wall:.1f} %), "
+              f"{ops:.0f} device ops/frame; K1 in these frames "
+              + (f"{k1_ms:.4f} ms" if k1_ms else "not seen by the profiler")
+              + f" against {k1_alone['stress_4k']:.4f} alone")
+        print_groups(by_name, PROFILE_FRAMES)
+    cf = next(iter(stress[0].draw._plans.values())).compiled
+    print(f"  stress: capture {cf.capture_seconds:.3f} s, graph pool "
+          f"{cf.pool_bytes / 2**20:.1f} MiB; card: {card}")
+    out["stress capture"] = (cf.capture_seconds, cf.pool_bytes)
+    del stress
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) the ladder, then (f) an uncapturable vertex function
+    ladder_on_card(card)
+    uncapturable_raises()
+    return out
 
 
 def main() -> int:
@@ -739,10 +1161,11 @@ def main() -> int:
     for d in ("cuda", "cpu"):
         app = DemoApp(1920, 1080, device=d)
         app.renderer.debug_winner = True
+        app.draw._eager_frames = True
         store, records = [], []
         with capture_k1_inputs(store, records):
             app.tick()
-        frames[d] = (app, store[0], records[0])
+        frames[d] = (app, trimmed(store[0]), records[0])
     k1_inputs = frames["cuda"][1]
     # frame-1 records of each scene, for the row-band phase
     band_frames = [("demo 1920x1080", frames["cuda"][2], (1080, 1920),
@@ -766,6 +1189,8 @@ def main() -> int:
     if not torch.equal(fb_gpu.view(torch.int32), fb_cpu.view(torch.int32)):
         raise AssertionError("1080p frame 1 through K1 differs from the "
                              "CPU frame")
+    for d, (app, _inputs, _records) in frames.items():
+        assert_no_flags(app, f"demo 1920x1080 frame 1 ({d})")
     print("  frame-1 records, plain raster and framebuffer: card == CPU, "
           "bit for bit")
 
@@ -776,13 +1201,15 @@ def main() -> int:
         app.run(frame)
         if rk.K1.launches - launches != frame:
             raise AssertionError("golden frames did not go through K1")
+        assert_no_flags(app, f"demo 128x128, {frame} frames")
         assert_goldens_rule(app.window.read_pixels(),
                             f"demo_128_frame{frame}.png")
 
     phase("5 the slice: DemoApp 1920x1080")
     app = DemoApp(1920, 1080, device="cuda")
-    app.tick()                                          # warm-up
+    app.tick()                          # warm-up, and the graph's capture
     plain = DemoApp(1920, 1080, device="cuda")
+    plain.draw._eager_frames = True     # the plain version reads back
     with plain_k1():
         plain.tick()
         plain_ms_a = time_frames(plain, PLAIN_FRAMES)
@@ -803,9 +1230,12 @@ def main() -> int:
     if not torch.equal(fb.view(torch.int32),
                        plain.window.framebuffer.view(torch.int32)):
         raise AssertionError("K1 path and plain path frames differ")
-    print(f"  K1 path: {ms:.3f} ms/frame over {TIMED_FRAMES} frames, "
-          f"{path_launches} K1 launches; plain-version path: {plain_ms:.3f} "
-          f"ms/frame ({plain_ms_a:.3f}, {plain_ms_b:.3f}); card: {card}")
+    assert_no_flags(app, "demo 1920x1080")
+    assert_no_flags(plain, "demo 1920x1080, plain path")
+    print(f"  K1 path (CUDA graph replay): {ms:.3f} ms/frame over "
+          f"{TIMED_FRAMES} frames, {path_launches} K1 launches; "
+          f"plain-version path (eager): {plain_ms:.3f} ms/frame "
+          f"({plain_ms_a:.3f}, {plain_ms_b:.3f}); card: {card}")
 
     # K1 alone at the frame-1 shapes, beside its plain version
     # 256 MiB written between timed calls flushes the 50 MB L2
@@ -835,19 +1265,21 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     store, records = [], []
     launches = rk.K1.launches
+    stress.draw._eager_frames = True    # frame 1 eager: its K1 inputs
     with capture_k1_inputs(store, records):
         stress.tick()                                   # warm-up, frame 1
+    stress.draw._eager_frames = False
     torch.cuda.synchronize()
     # the scene's state plus frame 1's temporaries
     peak = torch.cuda.max_memory_allocated() - base
     if rk.K1.launches - launches != 1 or len(store) != 1:
         raise AssertionError("the stress frame is not one K1 launch")
-    s_inputs = store[0]
+    s_inputs = trimmed(store[0])
     band_frames.append(("stress 3840x2160", records[0], (2160, 3840),
                         float(s_inputs[4][0, 0])))
     print(f"  frame 1: {records[0][0].shape[0]} packed records, "
-          f"{s_inputs[1].shape[0]} binned (tile, record) pairs, clip scale "
-          f"{stress.draw.clip_scale}; peak device memory "
+          f"{s_inputs[1].shape[0]} binned (tile, record) pairs, big scale "
+          f"{stress.draw.big_scale}; peak device memory "
           f"{peak / 2**20:.1f} MiB (above {base / 2**20:.1f} MiB held "
           f"before the scene was built)")
     tile_stats(s_inputs, "stress 3840x2160 frame 1")
@@ -866,15 +1298,19 @@ def main() -> int:
     if fb.shape != (2160, 3840, 4) or not bool(torch.isfinite(fb).all()):
         raise AssertionError("stress framebuffer is not finite f32[2160, "
                              "3840, 4]")
+    assert_no_flags(stress, "stress 3840x2160")
     plain = StressApp(device="cuda")
+    plain.draw._eager_frames = True
     with plain_k1():
         plain.tick()
         stress_plain_ms = time_frames(plain, STRESS_PLAIN_FRAMES)
     if not bits_equal(plain.window.framebuffer, fb_k1):
         raise AssertionError("stress frame: the plain path differs from "
                              "the K1 path")
+    assert_no_flags(plain, "stress 3840x2160, plain path")
     del plain
-    print(f"  K1 path: {stress_ms:.3f} ms/frame over {STRESS_FRAMES} frames "
+    print(f"  K1 path (CUDA graph replay): {stress_ms:.3f} ms/frame over "
+          f"{STRESS_FRAMES} frames "
           f"({stress.triangles / stress_ms / 1e3:.2f} Mtri/s), "
           f"{stress_launches} K1 launches; plain-version path: "
           f"{stress_plain_ms:.3f} ms/frame over {STRESS_PLAIN_FRAMES} "
@@ -904,8 +1340,9 @@ def main() -> int:
     shapes["stress_4k"]["no_walk_ms"] = no_walk_ms
     del (s_inputs, store, empty, invalid, no_walk, packed_s, index_s,
          starts_s, counts_s, depth_s)
-    # where the frame's time goes: a fence around each layer, then the
-    # device's busy share over unfenced frames
+    # where the eager frame's time goes: a fence around each layer, then
+    # the device's busy share over unfenced frames
+    stress.draw._eager_frames = True
     totals = {}
     with fenced_layers(totals):
         fenced_ms = time_frames(stress, PROFILE_FRAMES)
@@ -939,15 +1376,7 @@ def main() -> int:
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
         print(f"    {t / 1e3 / PROFILE_FRAMES:.3f} ms/frame  "
               f"{n // PROFILE_FRAMES:5d}x  {name[:70]}")
-    for group, key in (("torch.cat copies", "CatArrayBatchedCopy"),
-                       ("elementwise kernels", "elementwise_kernel"),
-                       ("gathers", "gather"),
-                       ("K1", "raster_tile_kernel"),
-                       ("host-to-device copies", "Memcpy HtoD")):
-        rows = [v for name, v in by_name.items() if key in name]
-        print(f"    group {group}: "
-              f"{sum(t for t, _ in rows) / 1e3 / PROFILE_FRAMES:.3f} ms/frame, "
-              f"{sum(n for _, n in rows) // PROFILE_FRAMES}x")
+    print_groups(by_name, PROFILE_FRAMES)
     del stress
 
     phase("7 the sequential frame path on the card")
@@ -959,6 +1388,8 @@ def main() -> int:
     if seq_launches != 3 or len(win_gpu) != 3:
         raise AssertionError(f"sequential frame: {seq_launches} K1 launches "
                              "for 3 batches")
+    for d, frame in frames.items():
+        assert_no_flags(frame, f"sequential frame ({d})")
     if not bits_equal(fb_gpu, fb_cpu) or not all(
             torch.equal(a.cpu(), b) for a, b in zip(win_gpu, win_cpu)):
         raise AssertionError("sequential frame differs from the CPU's")
@@ -977,6 +1408,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     app = DemoApp(7680, 4320, device="cuda")
+    app.draw._eager_frames = True       # its K1 inputs
     store, records = [], []
     rk.K1.launches = 0
     with capture_k1_inputs(store, records):
@@ -987,6 +1419,8 @@ def main() -> int:
     fb = app.window.framebuffer
     if fb.shape != (4320, 7680, 4) or not bool(torch.isfinite(fb).all()):
         raise AssertionError("8K framebuffer is not finite f32[4320, 7680, 4]")
+    assert_no_flags(app, "demo 7680x4320")
+    store[0] = trimmed(store[0])
     tile_stats(store[0], "demo 7680x4320 frame 1")
     k8_err = compare_k1(store[0], "demo 7680x4320 frame 1")
     shapes["demo_8k"] = time_k1(store[0], 50, 2,
@@ -1017,6 +1451,8 @@ def main() -> int:
     demo_syncs = {1: syncs_per_frame(single), 4: syncs_per_frame(banded)}
     report_turns("demo 1920x1080", demo_ms, demo_launches, demo_syncs,
                  BAND_FRAMES, card)
+    for n, app in ((1, single), (4, banded)):
+        assert_no_flags(app, f"demo 1920x1080 on {n} bands")
     del single, banded, single_frames
     gc.collect()
     torch.cuda.empty_cache()
@@ -1042,6 +1478,9 @@ def main() -> int:
                  stress_syncs, BAND_STRESS_FRAMES, card)
     # where the banded frames' time goes: phase 6's fences, the apps in
     # turns, each layer's least ms/frame over the rounds
+    for n, app in stress_apps.items():
+        assert_no_flags(app, f"stress 3840x2160 on {n} bands")
+        app.draw._eager_frames = True   # the fences need the eager frame
     layers = {n: {} for n in stress_apps}
     for _ in range(BAND_ROUNDS):
         for n, app in stress_apps.items():
@@ -1061,7 +1500,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    phase("11 results")
+    phase("11 the compiled frame: one CUDA graph replay a frame")
+    graph = compiled_frame_phase(card, {k: v["ms"]
+                                        for k, v in shapes.items()})
+
+    phase("12 results")
     by_path = {"demo_1080p": path_launches, "stress_4k": stress_launches,
                "sequential": seq_launches, "textured": tex_launches,
                "demo_8k": k8_launches,
@@ -1092,6 +1535,9 @@ def main() -> int:
         "stress_bands4_frame_ms": float(np.median(stress_turn_ms[4])),
         "stress_bands8_frame_ms": float(np.median(stress_turn_ms[8])),
         "build_s": rk.K1.build_seconds,
+        # phase 11: ms/frame graph against eager (medians in turns),
+        # host syncs a steady-state frame, K1 inside the graph
+        "graph": graph,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -40,15 +40,20 @@ def _instanced_marker_pipeline(rend, grid: int, terrain_size: int):
     """``grid * grid`` small markers, one per grid cell, standing on the
     heightmap (storage binding 0); each is placed from
     ``ctx.draw_instance`` alone. Constants are the reference's Python
-    floats rounded once to f32."""
+    floats rounded once to f32, made on the renderer's device once,
+    here: a frame uploads nothing."""
     spacing = 0.2 * terrain_size / grid
     f32 = torch.float32
-    c_spacing = torch.tensor(spacing, dtype=f32)
-    c_off = torch.tensor(0.1 * terrain_size, dtype=f32)
-    c_s = torch.tensor(spacing * 0.3, dtype=f32)
-    c_up = torch.tensor(spacing * 0.3 * 2.0, dtype=f32)
-    c_5 = torch.tensor(5.0, dtype=f32)
-    color = torch.tensor(MARKER_COLOR, dtype=f32)
+
+    def const(v):
+        return torch.tensor(v, dtype=f32).to(rend.device)
+
+    c_spacing = const(spacing)
+    c_off = const(0.1 * terrain_size)
+    c_s = const(spacing * 0.3)
+    c_up = const(spacing * 0.3 * 2.0)
+    c_5 = const(5.0)
+    color = const(MARKER_COLOR)
 
     def vertex_fn(ctx):
         dev = ctx.world.device
@@ -56,8 +61,8 @@ def _instanced_marker_pipeline(rend, grid: int, terrain_size: int):
         gx = (di % grid).to(f32)
         gz = (di // grid).to(f32)
         # world-space cell center over the terrain footprint
-        x = (gx + 0.5) * c_spacing.to(dev) - c_off.to(dev)
-        z = (gz + 0.5) * c_spacing.to(dev) - c_off.to(dev)
+        x = (gx + 0.5) * c_spacing - c_off
+        z = (gz + 0.5) * c_spacing - c_off
         # the terrain height at the cell: one gather (binding_at)
         cell = (torch.clamp((gz * float(terrain_size) / float(grid))
                             .to(torch.int32), 0, terrain_size - 1)
@@ -66,15 +71,14 @@ def _instanced_marker_pipeline(rend, grid: int, terrain_size: int):
                               .to(torch.int32), 0, terrain_size - 1))
         h = ctx.binding_at(0, cell)
         vi = ctx.vertex_index % 3
-        s = c_s.to(dev)
         zero = torch.zeros((), dtype=f32, device=dev)
         # a small clockwise triangle standing on the terrain
-        ox = torch.where(vi == 0, zero, torch.where(vi == 1, s, -s))
-        oy = torch.where(vi == 0, c_up.to(dev), zero)
+        ox = torch.where(vi == 0, zero, torch.where(vi == 1, c_s, -c_s))
+        oy = torch.where(vi == 0, c_up, zero)
         # ``5 * h + oy`` contracts to fma(5, h, oy)
-        pos = torch.stack([x + ox, torch.addcmul(oy, c_5.to(dev), h), z,
+        pos = torch.stack([x + ox, torch.addcmul(oy, c_5, h), z,
                            torch.ones((), dtype=f32, device=dev)])
-        return matvec4(ctx.world, pos), color.to(dev)
+        return matvec4(ctx.world, pos), color
 
     return Pipeline.create(
         rend, vertex_fn=vertex_fn,

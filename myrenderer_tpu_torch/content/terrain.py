@@ -51,17 +51,21 @@ _LOOKUP_ROW = np.array([1, 0, 1, 1, 0, 0], np.int32)   # multiples of size
 _LOOKUP_COL = np.array([0, 0, 1, 1, 0, 1], np.int32)   # +1 offsets
 
 
-def _offset(size: int) -> torch.Tensor:
-    """``0.1 * size`` rounded to f32, as the reference computes it."""
-    return torch.tensor(0.1, dtype=torch.float32) * float(size)
+def _offset(size: int, device) -> torch.Tensor:
+    """``0.1 * size`` rounded to f32, as the reference computes it, on
+    ``device``."""
+    return (torch.tensor(0.1, dtype=torch.float32) * float(size)).to(device)
 
 
-def _make_vertex_fn(size: int):
-    quad_vals = torch.from_numpy(_QUAD_VALS)
-    lookup_row = torch.from_numpy(_LOOKUP_ROW)
-    lookup_col = torch.from_numpy(_LOOKUP_COL)
+def _make_vertex_fn(size: int, device):
+    """The per-vertex terrain shader. Its constants are made on
+    ``device`` (the renderer's) once, here: a frame uploads nothing."""
+    quad_vals = torch.from_numpy(_QUAD_VALS).to(device)
+    lookup_row = torch.from_numpy(_LOOKUP_ROW).to(device)
+    lookup_col = torch.from_numpy(_LOOKUP_COL).to(device)
+    c02 = torch.tensor(0.2, dtype=torch.float32).to(device)
     max_idx = size * size - 1
-    off = _offset(size)
+    noff = -_offset(size, device)
 
     def vertex_fn(ctx):
         vi = ctx.vertex_index.long()
@@ -70,11 +74,10 @@ def _make_vertex_fn(size: int):
         quad_at = vi // 6
         quad_coords = torch.stack([(quad_at // size).float(),
                                    (quad_at % size).float()])
-        corner = quad_vals.to(dev)[vertex_at]
-        xz = fma(torch.tensor(0.2, device=dev), corner + quad_coords,
-                 -off.to(dev))
-        lookup = (quad_at + lookup_row.to(dev)[vertex_at] * size
-                  + lookup_col.to(dev)[vertex_at])
+        corner = quad_vals[vertex_at]
+        xz = fma(c02, corner + quad_coords, noff)
+        lookup = (quad_at + lookup_row[vertex_at] * size
+                  + lookup_col[vertex_at])
         h = ctx.binding(1)[torch.clamp(lookup, 0, max_idx)]
         uniform = ctx.binding(0)                        # f32[17]
         data_xform = uniform[:16].reshape(4, 4)
@@ -88,19 +91,21 @@ def _make_vertex_fn(size: int):
     return vertex_fn
 
 
-def _make_vertex_batch_fn(size: int):
+def _make_vertex_batch_fn(size: int, device):
     """Whole-stream formulation of the terrain vertex shader (the path
     the frame takes). The terrain is a regular grid, so the per-vertex
     heightmap gathers become four shifted views of the flat height array
     (extended with copies of its last element: the robust-buffer-access
     clamp of the reference's out-of-bounds ``quad + size + 1`` lookups).
+    Its constants are made on ``device`` once, here.
 
     Triangles go out in the JAX package's array order: per instance, the
     first triangle of every quad, then the second one. ``ids`` carries
     the submission ranks (2q and 2q+1 for quad q, ``Terrain.zig:126``),
     so winner ids and depth ties are those of submission order."""
     s2 = size * size
-    off = _offset(size)
+    c02 = torch.tensor(0.2, dtype=torch.float32).to(device)
+    noff = -_offset(size, device)
 
     def vertex_batch_fn(ctx):
         dev = ctx.worlds.device
@@ -108,8 +113,6 @@ def _make_vertex_batch_fn(size: int):
         quad = torch.arange(s2, dtype=torch.int32, device=dev)
         qx = (quad // size).float()
         qz = (quad % size).float()
-        c02 = torch.tensor(0.2, dtype=torch.float32, device=dev)
-        noff = -off.to(dev)
         # ``0.2 * (corner + q) - 0.1 * size`` contracts to
         # fma(0.2, corner + q, -(0.1 * size))
         xs = [fma(c02, float(_QUAD_VALS[s, 0]) + qx, noff)
@@ -170,8 +173,9 @@ class Terrain:
         if pipe is None:
             pipe = Pipeline.create(
                 self.renderer,
-                vertex_fn=_make_vertex_fn(size),
-                vertex_batch_fn=_make_vertex_batch_fn(size),
+                vertex_fn=_make_vertex_fn(size, self.renderer.device),
+                vertex_batch_fn=_make_vertex_batch_fn(size,
+                                                      self.renderer.device),
                 bindings=[BindingLayout(0, MANAGED_UNIFORM),
                           BindingLayout(1, MANAGED_STORAGE),
                           BindingLayout(2, BUILTIN_TRANSFORM)],

@@ -1,19 +1,25 @@
-"""Tiled rasterization around K1: viewport bounding boxes, exact CSR
-binning, the raster pass and shading (torch).
+"""Tiled rasterization around K1: viewport bounding boxes, CSR binning
+at a static pair capacity, the raster pass and shading (torch).
 
 Port of the host side of ``myrenderer_tpu/ops/raster_pallas.py``. Per
 raster pass:
 
 1. **Binning** (plain torch): each valid triangle's pixel bounding box
-   becomes a rect of TILE_H x TILE_W tiles; every live (tile, record)
-   pair is enumerated with ``repeat_interleave``, sorted by tile
-   (stable, so records stay in ascending order within a tile) and
-   counted with ``bincount`` into CSR ``starts/counts``. The bin order
-   is an index of record rows (4 bytes a pair); the records themselves
-   are not copied. The sizes are exact (one host sync for the pair
-   count of a pass, however many row bands it has), so there is no
-   stream capacity, no span budget and no shared "big" list. The
-   resolve is order-free, so routing cannot change a pixel.
+   becomes a rect of TILE_H x TILE_W tiles. The (tile, record) pairs are
+   enumerated over a static capacity of C slots (the reference's stream
+   capacity, :func:`pair_capacity`): slot p finds its record by
+   ``searchsorted`` on the cumulative spans, slots past the true total
+   take the tile id NT, and a stable sort by tile puts them past every
+   segment while records stay in ascending order within a tile. CSR
+   ``starts``/``counts`` come from ``searchsorted`` on the sorted tiles.
+   Shapes depend only on the record count, nothing is read back to the
+   host, and a pass of N row bands has N binnings and no sync. When the
+   pairs outgrow C, the pass's overflow flag is set on the device, the
+   last records' pairs are left out (every segment stays inside the
+   index) and ``Draw`` raises its capacity and renders again. The bin
+   order is an index of record rows (4 bytes a pair); the records are
+   not copied. The resolve is order-free, so routing cannot change a
+   pixel.
 2. **K1** (``raster_cuda.rasterize_tiles``): one CTA per tile, reading
    the records through the index.
 3. **Shading** (plain torch): one divide and the fragment programs over
@@ -66,53 +72,91 @@ def _bin_spans(valid, bbox, height: int, width: int, y0: int):
     return span, sx, tx0, ty0, ntx, nty * ntx
 
 
-def _bin_expand(spans, total: int):
-    """(index, starts, counts) from :func:`_bin_spans` and the sum of
-    its spans."""
+# pair slots per packed record at big scale 1, and their floor: frame 1
+# of the 4K stress scene binds 1.4 pairs a record, the 8K demo 19.4
+# (398,991 pairs) under the floor
+PAIRS_PER_RECORD = 2
+PAIR_FLOOR = 2**19
+# slot counts round up to this
+_PAIR_ROUND = 2**12
+
+# test hook: pin the pair capacity at big scale 1 (scaled by big_scale,
+# so the overflow -> bump -> re-render ladder can recover); the floor
+# above keeps real small scenes from ever overflowing
+_FORCE_PAIR_CAPACITY = None
+
+
+def pair_capacity(records: int, big_scale: int = 1) -> int:
+    """Static (tile, record) pair slots of a pass over ``records``
+    packed records: ``max(2 * records, 2^19) * big_scale``, rounded up
+    to a multiple of 4096."""
+    if _FORCE_PAIR_CAPACITY:
+        return _FORCE_PAIR_CAPACITY * big_scale
+    c = max(PAIRS_PER_RECORD * records, PAIR_FLOOR) * big_scale
+    return -(-c // _PAIR_ROUND) * _PAIR_ROUND
+
+
+def _bin_expand(spans, capacity: int):
+    """(index i32[C], starts i32[NT], counts i32[NT], overflow bool[])
+    from :func:`_bin_spans` over ``capacity`` pair slots. Slot p holds
+    the pair of the record whose span covers it; slots past the live
+    total hold the last record and sort past every tile's segment."""
     span, sx, tx0, ty0, ntx, NT = spans
     dev = span.device
-    tri = torch.repeat_interleave(torch.arange(span.shape[0], device=dev),
-                                  span, output_size=total)
-    first = torch.cumsum(span, 0) - span
-    k = torch.arange(total, device=dev) - first[tri]
+    R = span.shape[0]
+    if R == 0:
+        zeros = torch.zeros(NT, dtype=torch.int32, device=dev)
+        return (torch.zeros(capacity, dtype=torch.int32, device=dev), zeros,
+                zeros.clone(), torch.zeros((), dtype=torch.bool, device=dev))
+    ends = torch.cumsum(span, 0)
+    total = ends[-1]
+    slot = torch.arange(capacity, device=dev)
+    tri = torch.clamp(torch.searchsorted(ends, slot, right=True), max=R - 1)
+    k = slot - (ends - span)[tri]
     ey = k // sx[tri]
     ex = k - ey * sx[tri]
-    tile = (ty0[tri].long() + ey) * ntx + tx0[tri].long() + ex
+    tile = torch.where(slot < total,
+                       (ty0[tri].long() + ey) * ntx + tx0[tri].long() + ex,
+                       NT)
     tile_sorted, order = torch.sort(tile, stable=True)
     # each tile's segment of the sorted pairs (bincount would read the
-    # largest tile id back to the host: a sync per band)
+    # largest tile id back to the host); dead slots sort past tile NT - 1,
+    # so every segment lies in [0, C]
     bounds = torch.searchsorted(tile_sorted,
                                 torch.arange(NT + 1, device=dev))
     starts = bounds[:-1]
     counts = bounds[1:] - starts
     index = tri[order].to(torch.int32)
-    return index, starts.to(torch.int32), counts.to(torch.int32)
+    return (index, starts.to(torch.int32), counts.to(torch.int32),
+            total > capacity)
 
 
 def bin_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
-               height: int, width: int, y0: int = 0):
-    """Exact CSR binning of records to the tiles of an H x W frame, or of
-    the band of H rows whose first row is row ``y0`` of a taller frame
-    (``bbox`` in the frame's coordinates).
+               height: int, width: int, y0: int = 0, big_scale: int = 1):
+    """CSR binning of records to the tiles of an H x W frame, or of the
+    band of H rows whose first row is row ``y0`` of a taller frame
+    (``bbox`` in the frame's coordinates), over
+    ``pair_capacity(R, big_scale)`` pair slots.
 
-    Returns (index i32[S], starts i32[NT], counts i32[NT]) with
-    NT = ceil(H / TILE_H) * ceil(W / TILE_W), tiles row-major: tile t's
-    records are ``packed[index[starts[t]:starts[t] + counts[t]]]``, in
-    ascending row order. A triangle goes to every tile its clipped
-    bounding box touches, as in the reference; triangles whose box
-    misses the band are dropped."""
+    Returns (index i32[C], starts i32[NT], counts i32[NT], overflow
+    bool[]) with NT = ceil(H / TILE_H) * ceil(W / TILE_W), tiles
+    row-major: tile t's records are
+    ``packed[index[starts[t]:starts[t] + counts[t]]]``, in ascending row
+    order. A triangle goes to every tile its clipped bounding box
+    touches, as in the reference; triangles whose box misses the band
+    are dropped. Without overflow, ``index[:counts.sum()]``, ``starts``
+    and ``counts`` are those of exact binning; with it, the pairs past
+    the C-th (in record order) are left out."""
     spans = _bin_spans(valid, bbox, height, width, y0)
-    return _bin_expand(spans, int(spans[0].sum()))   # the one host sync
+    return _bin_expand(spans, pair_capacity(packed.shape[0], big_scale))
 
 
-def bin_bands(bands, width: int):
-    """:func:`bin_packed` of several bands with ONE host sync: ``bands``
-    holds (valid, bbox, height, y0) per band, each on its own device.
-    Every band's spans are launched before the pair counts are read."""
-    spans = [_bin_spans(v, b, h, width, y0) for v, b, h, y0 in bands]
-    dev = spans[0][0].device
-    totals = torch.stack([s[0].sum().to(dev) for s in spans]).tolist()
-    return [_bin_expand(s, t) for s, t in zip(spans, totals)]
+def bin_bands(bands, width: int, big_scale: int = 1):
+    """:func:`bin_packed` of several bands of one pass: ``bands`` holds
+    (valid, bbox, height, y0) per band, each on its own device."""
+    return [_bin_expand(_bin_spans(v, b, h, width, y0),
+                        pair_capacity(v.shape[0], big_scale))
+            for v, b, h, y0 in bands]
 
 
 def _k1_pass(packed, index, starts, counts, depth, y0, vp_height):
@@ -126,7 +170,7 @@ def _k1_pass(packed, index, starts, counts, depth, y0, vp_height):
 def rasterize_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
                      height: int, width: int,
                      depth: Optional[torch.Tensor] = None, y0: int = 0,
-                     vp_height: Optional[int] = None):
+                     vp_height: Optional[int] = None, big_scale: int = 1):
     """One raster pass over packed records (``rc.pack_coeffs_full``, id
     lane already holding global ranks), over the frame or over the band
     of ``height`` rows from row ``y0`` of a ``vp_height``-row frame
@@ -134,26 +178,28 @@ def rasterize_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
     to the same rows of the whole frame.
 
     Returns (depth f32[H, W], winner i32[H, W], vary_num f32[4, H, W],
-    vary_den f32[H, W]): the reference's contract without its overflow
-    flags, which exact sizing makes moot. The perspective-correct
-    varyings at pixel p are ``vary_num[:, p] / vary_den[p]`` (den is 1
-    where nothing covers)."""
+    vary_den f32[H, W], overflow bool[]): the reference's contract, its
+    flag set when the pass's pairs outgrow the pair capacity at
+    ``big_scale`` (the port has no big-triangle list, the reference's
+    other flag). The perspective-correct varyings at pixel p are
+    ``vary_num[:, p] / vary_den[p]`` (den is 1 where nothing covers)."""
     if depth is None:
         depth = torch.ones((height, width), dtype=torch.float32,
                            device=packed.device)
-    index, starts, counts = bin_packed(packed, valid, bbox, height, width,
-                                       y0=y0)
-    return _k1_pass(packed, index, starts, counts, depth, y0, vp_height)
+    index, starts, counts, overflow = bin_packed(
+        packed, valid, bbox, height, width, y0=y0, big_scale=big_scale)
+    return (*_k1_pass(packed, index, starts, counts, depth, y0, vp_height),
+            overflow)
 
 
 def rasterize_bands(packed: torch.Tensor, valid: torch.Tensor, bbox,
-                    width: int, vp_height: int, bands):
+                    width: int, vp_height: int, bands, big_scale: int = 1):
     """:func:`rasterize_packed` over row bands of one frame, each on its
     own device: ``bands`` holds (y0, depth f32[h, W]) per band, the
     band's device being its depth's. The records go to each device
-    (``non_blocking``; a no-op where they already are), every band is
-    binned with one host sync in all, then K1 runs band by band on each
-    device's current stream. Returns one (depth, winner, num, den) per
+    (``non_blocking``; a no-op where they already are), then binning,
+    K1 and shading run band by band on each device's current stream, with
+    no host sync. Returns one (depth, winner, num, den, overflow) per
     band."""
     moved = []
     for _y0, depth in bands:
@@ -162,9 +208,11 @@ def rasterize_bands(packed: torch.Tensor, valid: torch.Tensor, bbox,
                       valid.to(dev, non_blocking=True),
                       tuple(c.to(dev, non_blocking=True) for c in bbox)))
     bins = bin_bands([(v, b, depth.shape[0], y0) for (y0, depth), (_p, v, b)
-                      in zip(bands, moved)], width)
-    return [_k1_pass(p, *binned, depth, y0, vp_height)
-            for (y0, depth), (p, _v, _b), binned in zip(bands, moved, bins)]
+                      in zip(bands, moved)], width, big_scale)
+    return [(*_k1_pass(p, index, starts, counts, depth, y0, vp_height),
+             overflow)
+            for (y0, depth), (p, _v, _b), (index, starts, counts, overflow)
+            in zip(bands, moved, bins)]
 
 
 def rasterize(tc: rc.TriCoeffs, height: int, width: int,
@@ -191,8 +239,9 @@ def rasterize_visibility(tc: rc.TriCoeffs, height: int, width: int,
                          tri_clip: Optional[torch.Tensor] = None):
     """Visibility only, (depth f32[H, W], winner i32[H, W]): the oracle's
     signature (``raster_ref.rasterize_visibility``) over the tile path."""
-    d, w, _num, _den = rasterize(tc, height, width, depth=depth,
-                                 base_index=base_index, tri_clip=tri_clip)
+    d, w, _num, _den, _ovf = rasterize(tc, height, width, depth=depth,
+                                       base_index=base_index,
+                                       tri_clip=tri_clip)
     return d, w
 
 

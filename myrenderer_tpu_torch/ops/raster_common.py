@@ -194,7 +194,7 @@ def triangle_setup(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
     w_ok = (ws[0] > W_EPS) & (ws[1] > W_EPS) & (ws[2] > W_EPS)
     valid = valid & facing_ok & w_ok
     if z_bias is not None:
-        bias = torch.tensor(z_bias, dtype=f32, device=det.device)
+        bias = torch.full((), z_bias, dtype=f32, device=det.device)
         zs = [fma(bias, w, z) for z, w in zip(zs, ws)]
         zhi = torch.where(valid, bias + 1.0, torch.zeros((), dtype=f32,
                                                          device=det.device))
@@ -267,61 +267,58 @@ def _clip_straddlers(tri_clip: torch.Tensor, tri_vary: torch.Tensor):
     return tri1_clip, tri1_vary, tri2_clip, tri2_vary, valid1, valid2
 
 
-class ClipOverflow(RuntimeError):
-    """More triangles of a batch straddle the eye plane than its clip
-    capacity holds. ``Draw`` answers it as the reference does: it raises
-    the capacity and renders the frame again."""
-
-
 def select_straddlers(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
                       valid: torch.Tensor, cap: int):
     """Extract up to ``cap`` eye-plane straddlers (a vertex at
     w <= W_EPS while another is in front: the set triangle_setup's w
     test drops), in array order, and clip each into <= 2 triangles.
 
-    Returns (app_clip [2cap, 3, 4], app_vary [2cap, 3, C], app_valid
-    bool[2cap], sel i32[cap]): the appendee block, laid out as the
+    The selection is the reference's static one: sort
+    ``where(straddle, arange(T), T)`` and keep the first ``cap``, so the
+    shapes are fixed and nothing is read back to the host. Returns
+    (app_clip [2cap, 3, 4], app_vary [2cap, 3, C], app_valid bool[2cap],
+    sel i32[cap], overflow bool[]): the appendee block, laid out as the
     reference lays it out (first triangles of all slots, then second
     triangles), so each batch reserves ``2*cap`` ids after its own.
-    Raises :class:`ClipOverflow` when more than ``cap`` triangles
-    straddle."""
+    ``overflow`` is set on the device when more than ``cap`` triangles
+    straddle (the first ``cap`` are clipped; ``Draw`` raises its
+    capacity and renders the frame again)."""
     T = tri_clip.shape[0]
     w = tri_clip[..., 3]
     straddle = valid & (w > W_EPS).any(-1) & (w <= W_EPS).any(-1)
-    sel = torch.nonzero(straddle).flatten().to(torch.int32)
-    n = sel.shape[0]          # one host sync per batch
-    if n > cap:
-        raise ClipOverflow(f"{n} triangles straddle the eye plane, more "
-                           f"than the clip capacity {cap} of a batch")
-    sel_live = torch.zeros(cap, dtype=torch.bool, device=w.device)
-    sel_live[:n] = True
-    pad = torch.full((cap - n,), max(T - 1, 0), dtype=torch.int32,
-                     device=w.device)
-    sel = torch.cat([sel, pad])
+    tri_idx = torch.arange(T, dtype=torch.int32, device=w.device)
+    sel = torch.sort(torch.where(straddle, tri_idx, T)).values
+    if T < cap:
+        sel = torch.cat([sel, torch.full((cap - T,), T, dtype=torch.int32,
+                                         device=w.device)])
+    sel = sel[:cap]
+    sel_live = sel < T
+    sel = torch.clamp(sel, max=max(T - 1, 0))
+    overflow = straddle.sum() > cap
     sel_l = sel.long()
     t1c, t1v, t2c, t2v, v1, v2 = _clip_straddlers(tri_clip[sel_l],
                                                   tri_vary[sel_l])
     app_clip = torch.cat([t1c, t2c])
     app_vary = torch.cat([t1v, t2v])
     app_valid = torch.cat([v1 & sel_live, v2 & sel_live])
-    return app_clip, app_vary, app_valid, sel
+    return app_clip, app_vary, app_valid, sel, overflow
 
 
 def clip_near_capacity(tris: Triangles, valid: torch.Tensor, cap: int):
     """The oracle's eye-plane clipping stage: the appendee block of
     :func:`select_straddlers` concatenated after the batch. Returns
-    (Triangles [T + 2cap], valid bool[T + 2cap]).
+    (Triangles [T + 2cap], valid bool[T + 2cap], overflow bool[]).
 
     As in the reference, the result is in array order: a permuted
     producer's ``ids`` do not survive (the appendees have no submission
     ranks), so the oracle's winner ids and depth ties follow the array
     order; ``planar`` does, since it selects the setup's rounding
     forms."""
-    app_clip, app_vary, app_valid, _sel = select_straddlers(
+    app_clip, app_vary, app_valid, _sel, overflow = select_straddlers(
         tris.clip, tris.vary, valid, cap)
     return (Triangles(torch.cat([tris.clip, app_clip]),
                       torch.cat([tris.vary, app_vary]), None, tris.planar),
-            torch.cat([valid, app_valid]))
+            torch.cat([valid, app_valid]), overflow)
 
 
 def pack_coeffs(tc: TriCoeffs) -> torch.Tensor:
@@ -376,8 +373,8 @@ def coverage_depth(rec: torch.Tensor, px, py):
     lane = [rec[..., k] for k in range(COEFF_LANES)]
     (a0, b0, c0, a1, b1, c1, a2, b2, c2,
      zna, znb, znc, wna, wnb, wnc, zhi) = lane
-    neg_eps = torch.tensor(-TL_EPS, dtype=torch.float32, device=rec.device)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=rec.device)
+    neg_eps = torch.full((), -TL_EPS, dtype=torch.float32, device=rec.device)
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=rec.device)
     th0 = torch.where(zhi > 0, edge_is_top_left(a0, b0).float() * neg_eps,
                       inf)
     th1 = edge_is_top_left(a1, b1).float() * neg_eps

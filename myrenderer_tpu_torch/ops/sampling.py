@@ -31,9 +31,10 @@ def sample_bilinear(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     tex f32[H, W, C], uv f32[..., 2]; returns f32[..., C]."""
     h, w = tex.shape[0], tex.shape[1]
     # ``uv * w - 0.5`` contracts to fma(uv, w, -0.5)
-    half = torch.tensor(-0.5, device=uv.device)
-    fx = fma(uv[..., 0], torch.tensor(float(w), device=uv.device), half)
-    fy = fma(uv[..., 1], torch.tensor(float(h), device=uv.device), half)
+    # the constants are filled on the device: a frame uploads nothing
+    half = torch.full((), -0.5, device=uv.device)
+    fx = fma(uv[..., 0], torch.full((), float(w), device=uv.device), half)
+    fy = fma(uv[..., 1], torch.full((), float(h), device=uv.device), half)
     x0 = torch.floor(fx)
     y0 = torch.floor(fy)
     tx = (fx - x0)[..., None]

@@ -38,19 +38,24 @@ def matvec4(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return matmul4(m, v[..., None])[..., 0]
 
 
+def level_indices(levels: Sequence[np.ndarray], parents: np.ndarray,
+                  device) -> list:
+    """The (nodes, their parents) long index pairs of each level, depth
+    1, 2, ... (``levels`` lists the node indices at each depth), for
+    :func:`compose_world_transforms`; made once on ``device`` (a frame
+    plan keeps them, so a frame uploads nothing)."""
+    return [(torch.as_tensor(idxs, dtype=torch.long, device=device),
+             torch.as_tensor(parents[idxs], dtype=torch.long, device=device))
+            for idxs in levels if len(idxs)]
+
+
 def compose_world_transforms(locals_: torch.Tensor,
-                             levels: Sequence[np.ndarray],
-                             parents: np.ndarray) -> torch.Tensor:
+                             levels: Sequence[tuple]) -> torch.Tensor:
     """world[n] = world[parent[n]] @ local[n] (``SceneNode.zig:96``),
-    level by level: ``levels`` lists the node indices at depth 1, 2, ...
-    (roots keep their local transform)."""
+    level by level over the (nodes, parents) index pairs of
+    :func:`level_indices` (roots keep their local transform)."""
     world = locals_.clone()
-    for idxs in levels:
-        if len(idxs) == 0:
-            continue
-        i = torch.as_tensor(idxs, dtype=torch.long, device=world.device)
-        p = torch.as_tensor(parents[idxs], dtype=torch.long,
-                            device=world.device)
+    for i, p in levels:
         world[i] = matmul4(world[p], locals_[i])
     return world
 
@@ -61,9 +66,9 @@ def cull_aabb(clip_mats: torch.Tensor, aabb_min: torch.Tensor,
     corners lie outside one clip half-space (x, y in [-w, w], z in
     [0, w]). clip_mats f32[I, 4, 4], aabb_min/max f32[I, 3], finite
     bool[I] (False = infinite box, always visible)."""
-    sel = torch.tensor([[(k >> 0) & 1, (k >> 1) & 1, (k >> 2) & 1]
-                        for k in range(8)], dtype=torch.bool,
-                       device=clip_mats.device)               # [8, 3]
+    # corner k takes the max of axis a where bit a of k is set
+    k = torch.arange(8, device=clip_mats.device)
+    sel = ((k[:, None] >> torch.arange(3, device=k.device)) & 1).bool()
     corners = torch.where(sel[None], aabb_max[:, None], aabb_min[:, None])
     hom = torch.cat([corners, torch.ones_like(corners[..., :1])], -1)
     cc = matvec4(clip_mats[:, None], hom)                     # [I, 8, 4]

@@ -134,7 +134,7 @@ def sharded_render_step(mesh: Mesh, height: int, width: int,
     The triangles are clipped at the eye plane and set up once, at the
     full frame height, on the mesh's first device, and go to every band.
     ``tiles`` renders each band with binning and K1
-    (:func:`..ops.raster.rasterize_bands`, one host sync for all bands);
+    (:func:`..ops.raster.rasterize_bands`, no host sync);
     otherwise each band runs the per-triangle oracle loop over its own
     pixel centres. ``winner`` is the exact comparison surface (-1 where
     nothing covers)."""
@@ -150,7 +150,9 @@ def sharded_render_step(mesh: Mesh, height: int, width: int,
     def step(tri_clip, tri_vary, valid, fb):
         tris = rc.Triangles(torch.as_tensor(tri_clip).to(dev0),
                             torch.as_tensor(tri_vary).to(dev0))
-        tris, valid = rc.clip_near_capacity(
+        # like the reference's step, it clips at a static capacity and
+        # does not surface the overflow flag
+        tris, valid, _overflow = rc.clip_near_capacity(
             tris, torch.as_tensor(valid).to(dev0), clip_capacity)
         tc = rc.triangle_setup(tris.clip, tris.vary, valid, width, height)
         fbs = split_bands(fb, devices)
@@ -162,7 +164,7 @@ def sharded_render_step(mesh: Mesh, height: int, width: int,
                 rc.pack_coeffs_full(tc), tc.valid,
                 raster.viewport_bbox(tris.clip, width, height), width,
                 height, depths)
-            for (_d, w, num, den), f in zip(passes, fbs):
+            for (_d, w, num, den, _ovf), f in zip(passes, fbs):
                 outs.append(raster.shade_from_planes(w, num, den, f,
                                                      fragment_fn))
                 winners.append(w)

@@ -192,6 +192,23 @@ class Renderer:
         self.collect_stats = False
         self.frame_stats: dict = {}
 
+        # When True, Draw.end makes the NEXT capacity rung's frame plan
+        # (big_scale x4) after each frame and, on a card, captures its
+        # CUDA graph, so an overflow re-renders with a graph replay
+        # instead of a warm-up and a capture. The capture runs at the end
+        # of Draw.end on the calling thread, once per scene version and
+        # rung (Draw._maybe_warm_next_capacity).
+        self.precompile_capacity_bump = False
+
+        # When True, Draw.end reads every frame's overflow flag
+        # synchronously before publishing and re-renders a flagged frame
+        # at the next capacity rung: no published frame drops
+        # triangles, for one host sync a frame. Default False: the flag
+        # is polled asynchronously, and a steady-state overflow can drop
+        # triangles in up to Draw.OVERFLOW_WINDOW (8) published frames
+        # before the bump lands (frame_stats["overflow_risk_frames"]).
+        self.strict_overflow = False
+
     def adopt_window(self, window: Window) -> None:
         """Bind the renderer to a window; its framebuffer moves to the
         renderer's device."""

@@ -389,7 +389,8 @@ def _time_flushed(fn, n: int, flush) -> float:
 
 
 def _frame1_inputs(make_app):
-    """The arguments of the first K1 call of the app's first frame."""
+    """The arguments of the first K1 call of the app's first frame, run
+    eagerly (no CUDA graph is captured)."""
     from ..ops import raster
     store, orig = [], raster.rasterize_tiles
 
@@ -399,7 +400,9 @@ def _frame1_inputs(make_app):
 
     raster.rasterize_tiles = capture
     try:
-        make_app().tick()
+        app = make_app()
+        app.draw._eager_frames = True
+        app.tick()
     finally:
         raster.rasterize_tiles = orig
     torch.cuda.synchronize()
@@ -420,8 +423,10 @@ def _sliver_inputs(seed):
                            torch.ones(SLIVERS, dtype=torch.bool, device=dev),
                            W, H, "none")
     packed = rc.pack_coeffs_full(tc)
-    index, starts, counts = raster.bin_packed(
+    index, starts, counts, overflow = raster.bin_packed(
         packed, tc.valid, raster.viewport_bbox(clip_t, W, H), band, W, y0=y0)
+    if bool(overflow):
+        raise AssertionError("the sliver set outgrew the pair capacity")
     return y0, (packed, index, starts, counts,
                 torch.ones((band, W), device=dev))
 
@@ -434,7 +439,7 @@ def _faults(libs):
     pairs = 0
     for seed in range(SLIVER_SETS):
         y0, inputs = _sliver_inputs(seed)
-        pairs += int(inputs[1].shape[0])
+        pairs += int(inputs[3].sum())
         rfused, rwinner = rk.rasterize_tiles_reference(*inputs, y0=y0)
         fused, winner = _launch(libs["source"], inputs, y0)
         if not (torch.equal(winner, rwinner) and torch.equal(

@@ -30,6 +30,7 @@ PORT_MODULES = [
     "myrenderer_tpu_torch.ops.sampling",
     "myrenderer_tpu_torch.parallel",
     "myrenderer_tpu_torch.renderer",
+    "myrenderer_tpu_torch.renderer.compiled",
     "myrenderer_tpu_torch.state",
     "myrenderer_tpu_torch.tools.k1_lab",
     "myrenderer_tpu_torch.utils.png",

@@ -106,15 +106,16 @@ def test_rasterize_packed_band_matches_jax(y0):
     assert not bool(np.asarray(jovf).any())
     t_in = (torch.from_numpy(packed), torch.from_numpy(valid),
             tuple(torch.from_numpy(c) for c in bbox))
-    td, tw, tnum, tden = raster.rasterize_packed(
+    td, tw, tnum, tden, tovf = raster.rasterize_packed(
         *t_in, band, W, depth=torch.from_numpy(depth), y0=y0, vp_height=VH)
+    assert not bool(tovf)
     assert_bits_equal(jw, tw)
     assert_bits_equal(jd, td)
     assert_bits_equal(jnum, tnum)
     assert_bits_equal(jden, tden)
     assert int((tw >= 0).sum()) > 0
 
-    fd, fw, fnum, fden = raster.rasterize_packed(*t_in, VH, W)
+    fd, fw, fnum, fden, _fovf = raster.rasterize_packed(*t_in, VH, W)
     rows = slice(y0, y0 + band)
     assert_bits_equal(fw[rows], tw)
     assert_bits_equal(fd[rows], td)
@@ -144,10 +145,10 @@ def test_rasterize_entry_points_match_jax(y0, band, base):
     tc = trc.triangle_setup(clip_t, vary_t, torch.from_numpy(valid), W, VH)
     jd, jw, jnum, jden, jovf = jax_pass(clip, vary, valid)
     assert not bool(np.asarray(jovf).any())
-    td, tw, tnum, tden = raster.rasterize(tc, band, W, base_index=base,
-                                          tri_clip=clip_t, y0=y0,
-                                          vp_height=VH)
+    td, tw, tnum, tden, tovf = raster.rasterize(
+        tc, band, W, base_index=base, tri_clip=clip_t, y0=y0, vp_height=VH)
     assert int((tw >= 0).sum()) > 0
+    assert bool(tovf) == bool(np.asarray(jovf).any())
     for j, t in ((jw, tw), (jd, td), (jnum, tnum), (jden, tden)):
         assert_bits_equal(j, t)
     jd, jw = jax_pass(clip, vary, valid, visibility=True)
@@ -170,7 +171,7 @@ def test_pixel_grids_offsets_match_jax(height, width, y0, x0):
 def test_band_binning_is_band_local():
     """Every record in a band's bins touches the band, out-of-band
     records are culled (at least T // 2 exclusions over 4 bands), and
-    bin_bands gives each band bin_packed's bins with one host sync."""
+    bin_bands gives each band bin_packed's bins, with no host sync."""
     H, W, bands = 64, 128, 4
     band = H // bands
     T = 60
@@ -187,10 +188,12 @@ def test_band_binning_is_band_local():
     excluded = 0
     for g in range(bands):
         y0 = g * band
-        index, starts, counts = raster.bin_packed(packed, tc.valid, bbox,
-                                                  band, W, y0=y0)
-        for a, b in zip((index, starts, counts), batched[g]):
+        binned = raster.bin_packed(packed, tc.valid, bbox, band, W, y0=y0)
+        for a, b in zip(binned, batched[g]):
             assert torch.equal(a, b)
+        index, starts, counts, overflow = binned
+        assert not bool(overflow)
+        index = index[:int(counts.sum())]
         ids = set(packed[index.long(), 16].long().tolist())
         in_band = setup_valid & (maxv >= y0) & (minv < y0 + band)
         assert ids, f"band {g} unexpectedly empty"
@@ -385,7 +388,7 @@ def test_k1_band_matches_plain_version_on_card(set_name, cuda_device):
                             torch.ones(clip.shape[0], dtype=torch.bool,
                                        device=dev), W, VH, "none")
     packed = trc.pack_coeffs_full(tc)
-    index, starts, counts = raster.bin_packed(
+    index, starts, counts, _overflow = raster.bin_packed(
         packed, tc.valid, raster.viewport_bbox(clip_t, W, VH), band, W,
         y0=y0)
     depth = torch.ones((band, W), device=dev)

@@ -1,4 +1,4 @@
-"""Raster-pass parity: the port's exact CSR binning plus K1's plain
+"""Raster-pass parity: the port's CSR binning plus K1's plain
 PyTorch version (``raster.rasterize_packed`` on CPU tensors) against the
 JAX package's ``rasterize_packed`` (Pallas kernel in interpret mode) on
 identical packed records. Winners exact; depth within the repo's 2-ulp
@@ -110,10 +110,11 @@ def test_rasterize_packed_parity(case):
         tuple(jnp.asarray(c) for c in bbox), height=H, width=W,
         depth=jnp.asarray(depth))
     assert not bool(np.asarray(jovf).any())
-    td, tw, tnum, tden = raster.rasterize_packed(
+    td, tw, tnum, tden, tovf = raster.rasterize_packed(
         torch.from_numpy(packed), torch.from_numpy(valid),
         tuple(torch.from_numpy(c) for c in bbox), H, W,
         depth=torch.from_numpy(depth))
+    assert tovf.shape == () and not bool(tovf)
     np.testing.assert_array_equal(np.asarray(jw), tw.numpy())
     assert_ulps(jd, td, 2)
     assert_bits_equal(jnum, tnum)
@@ -127,15 +128,16 @@ def test_bin_packed_is_exact():
     segment of the index names exactly those rows of ``packed``."""
     H, W = 70, 90
     packed, valid, bbox, _d = packed_frame([(80, 8, 0, -0.5)], H, W)
-    index, starts, counts = raster.bin_packed(
+    index, starts, counts, overflow = raster.bin_packed(
         torch.from_numpy(packed), torch.from_numpy(valid),
         tuple(torch.from_numpy(c) for c in bbox), H, W)
-    assert index.dtype == torch.int32
+    assert index.dtype == torch.int32 and not bool(overflow)
+    assert index.shape[0] == raster.pair_capacity(packed.shape[0])
     TH, TW = raster_cuda.TILE_H, raster_cuda.TILE_W
     nty, ntx = -(-H // TH), -(-W // TW)
     ph = nty * TH
     index, starts, counts = index.numpy(), starts.numpy(), counts.numpy()
-    assert starts[0] == 0 and counts.sum() == index.shape[0]
+    assert starts[0] == 0 and 0 < counts.sum() < index.shape[0]
     np.testing.assert_array_equal(starts[1:], np.cumsum(counts)[:-1])
     live = (valid & (bbox[3] >= 0) & (bbox[2] < ph) & (bbox[1] >= 0)
             & (bbox[0] < W))
@@ -155,10 +157,11 @@ def test_bin_packed_is_exact():
 def test_rasterize_packed_empty():
     H, W = 16, 40
     packed = np.zeros((3, 32), np.float32)
-    d, w, num, den = raster.rasterize_packed(
+    d, w, num, den, overflow = raster.rasterize_packed(
         torch.from_numpy(packed), torch.zeros(3, dtype=torch.bool),
         tuple(torch.zeros(3) for _ in range(4)), H, W)
     assert bool((w == -1).all()) and bool((d == 1).all())
+    assert not bool(overflow)
     assert bool((den == 1).all()) and bool((num == 0).all())
 
 
@@ -178,7 +181,7 @@ def test_k1_matches_plain_version_on_card(case, cuda_device):
     packed, valid, bbox, depth0 = packed_frame(batches, H, W, *reverse)
     dev = cuda_device
     packed = torch.from_numpy(packed).to(dev)
-    index, starts, counts = raster.bin_packed(
+    index, starts, counts, _overflow = raster.bin_packed(
         packed, torch.from_numpy(valid).to(dev),
         tuple(torch.from_numpy(c).to(dev) for c in bbox), H, W)
     depth = torch.full((H, W), depth0, device=dev)

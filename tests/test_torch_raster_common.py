@@ -18,6 +18,7 @@ from myrenderer_tpu_torch.app.demo import DemoApp
 from myrenderer_tpu_torch.ops import raster_common as trc
 from myrenderer_tpu_torch.ops import vertex_stage as tvs
 from myrenderer_tpu_torch.renderer import draw as tdraw
+from myrenderer_tpu_torch.renderer.compiled import device_args
 from myrenderer_tpu_torch.utils.trisets import random_triangles
 
 torch.set_num_threads(1)
@@ -66,8 +67,10 @@ def torch_setup_batch(clip, vary, valid, width, height, cull_mode="back",
     tris = trc.Triangles(torch.from_numpy(clip), torch.from_numpy(vary),
                          None if ids is None else torch.from_numpy(ids),
                          planar)
-    return tdraw._setup_batch(plan, tris, torch.from_numpy(valid),
-                              cull_mode, z_bias=z_bias, base_index=base)
+    packed, v, bbox, _ovf = tdraw._setup_batch(
+        plan, tris, torch.from_numpy(valid), cull_mode, z_bias=z_bias,
+        base_index=base)
+    return packed, v, bbox
 
 
 @pytest.mark.parametrize("cull_mode", ["back", "front", "none"])
@@ -104,16 +107,26 @@ def test_select_straddlers(n, seed):
         clip, vary, valid)
     t = trc.select_straddlers(torch.from_numpy(clip), torch.from_numpy(vary),
                               torch.from_numpy(valid), 128)
-    for a, b in zip(j[:4], t):
+    assert len(t) == len(j) == 5
+    for a, b in zip(j, t):
         assert_bits_equal(a, b)
-    assert bool(np.asarray(j[2]).any())
+    assert bool(np.asarray(j[2]).any()) and not bool(t[4])
 
 
 def test_select_straddlers_raises_over_capacity():
+    """More straddlers than the capacity raise the device flag (no
+    exception, no host read): the first ``cap`` straddlers in array
+    order are clipped, as the reference clips them."""
     clip, vary = random_triangles(64, 3, w_range=(-1.0, 1.0))
-    with pytest.raises(RuntimeError, match="straddle"):
-        trc.select_straddlers(torch.from_numpy(clip), torch.from_numpy(vary),
-                              torch.ones(64, dtype=torch.bool), 4)
+    w = clip[..., 3]
+    straddle = np.nonzero((w > 1e-6).any(-1) & (w <= 1e-6).any(-1))[0]
+    assert straddle.size > 4
+    _c, _v, app_valid, sel, overflow = trc.select_straddlers(
+        torch.from_numpy(clip), torch.from_numpy(vary),
+        torch.ones(64, dtype=torch.bool), 4)
+    assert overflow.shape == () and bool(overflow)
+    np.testing.assert_array_equal(sel.numpy(), straddle[:4])
+    assert app_valid.shape == (8,) and bool(app_valid[:4].all())
 
 
 def test_coverage_depth_and_top_left():
@@ -154,9 +167,9 @@ def demo_batches():
     app.tick()
     draw = app.draw
     plan = draw._get_plan(app.window)
-    args = draw._gather_args(plan, app.window)
-    world = tvs.compose_world_transforms(args["locals"], plan.levels,
-                                         plan.parents)
+    args = device_args(draw._gather_args(plan, app.window),
+                       torch.device("cpu"))
+    world = tvs.compose_world_transforms(args["locals"], plan.level_index)
     return tdraw._batch_vertex_products(plan, args, world,
                                         torch.device("cpu"))
 
@@ -207,11 +220,11 @@ def test_clip_near_capacity(planar):
         return (out.interleaved() if planar else (out, ov)), om, ovf
 
     (jc, jv), jm, jovf = jax.jit(f)(clip, vary, valid, ids)
-    tris, tm = trc.clip_near_capacity(
+    tris, tm, tovf = trc.clip_near_capacity(
         trc.Triangles(torch.from_numpy(clip), torch.from_numpy(vary),
                       torch.from_numpy(ids) if planar else None, planar),
         torch.from_numpy(valid), 128)
-    assert not bool(jovf)
+    assert not bool(jovf) and not bool(tovf)
     assert_bits_equal(jc, tris.clip)
     assert_bits_equal(jv, tris.vary)
     assert_bits_equal(jm, tm)

@@ -192,19 +192,18 @@ def test_depth_write_off_keeps_depth_buffer():
 
 
 def test_frame_stats():
-    """The JAX package's frame_stats keys, without its TPU capacity
-    machinery (big_scale, overflow_risk_frames) and with the clip
-    scale; the same counts."""
+    """The JAX package's frame_stats keys, its capacity machinery's
+    (big_scale, overflow_risk_frames) included; the same counts."""
     scene = SCENES["later surface clears"]
     *_, jstats = render(JAX, "pallas", scene, stats=True)
     *_, tstats = render(TORCH, "auto", scene, stats=True)
-    assert set(tstats) == (set(jstats) - {"big_scale",
-                                          "overflow_risk_frames"}
-                           | {"clip_scale"})
+    assert set(tstats) == set(jstats)
     for key in ("frame", "surfaces", "batches", "triangles_submitted",
-                "merged", "fragment_programs"):
+                "merged", "fragment_programs", "big_scale",
+                "overflow_risk_frames"):
         assert tstats[key] == jstats[key], key
-    assert tstats["backend"] == "tile" and tstats["clip_scale"] == 1
+    assert tstats["backend"] == "tile" and tstats["big_scale"] == 1
+    assert tstats["overflow_risk_frames"] == 0
     assert tstats["ms_since_last_end"] is None
     assert tstats["batches"] == 4 and not tstats["merged"]
     *_, ostats = render(TORCH, "oracle", SCENES["depth_write off"],
@@ -259,22 +258,33 @@ def straddler_scene(api, backend):
 
 def test_clip_ladder_renders_what_the_reference_renders():
     """About 200 eye-plane straddlers in one batch: more than the
-    clip capacity of 128. The port raises its clip scale x4 and renders
-    the frame again, as the JAX package raises its big_scale; both then
-    reserve 2 * 128 * 4 straddler ids, so winners compare equal."""
+    clip capacity of 128. The frame's clip flag raises the port's
+    big_scale x4 and the frame renders again, as the JAX package raises
+    its big_scale; both then reserve 2 * 128 * 4 straddler ids, so
+    winners compare equal."""
     tdraw_, tfb, twin, n = straddler_scene(TORCH, "auto")
     jdraw_, jfb, jwin, _ = straddler_scene(JAX, "pallas")
     assert tdraw.CLIP_CAPACITY < n <= 4 * tdraw.CLIP_CAPACITY
-    assert tdraw_.clip_scale == 4
-    assert jdraw_._big_scale == 4 * 1       # the port's scale starts at 1
+    assert tdraw_.big_scale == 4
+    assert jdraw_._big_scale == 4 * 1       # both scales start at 1
+    assert not bool(tdraw_.last_overflow.any())
     np.testing.assert_array_equal(jwin, twin)
     assert int((twin >= STRADDLERS).sum()) > 0   # clipped fragments won
     np.testing.assert_array_equal(jfb.view(np.int32), tfb.view(np.int32))
 
 
 def test_clip_ladder_stops_at_its_top(monkeypatch):
-    """Past CLIP_SCALE_MAX the frame raises instead of dropping
-    triangles."""
-    monkeypatch.setattr(tdraw, "CLIP_SCALE_MAX", 1)
-    with pytest.raises(RuntimeError, match="straddle"):
-        straddler_scene(TORCH, "auto")
+    """At BIG_SCALE_MAX the ladder stops, as the reference's does: the
+    frame publishes with its clip flag set (the straddlers past the
+    capacity dropped) and frame_stats reports the unbounded risk."""
+    monkeypatch.setattr(tdraw, "BIG_SCALE_MAX", 1)
+    draw, _fb, win, n = straddler_scene(TORCH, "auto")
+    assert n > tdraw.CLIP_CAPACITY and draw.big_scale == 1
+    assert np.asarray(draw.last_overflow).tolist() == [False, True]
+    draw.renderer.collect_stats = True
+    draw.renderer.update()
+    draw.begin()
+    draw.clear(CLEAR)
+    draw.draw_surface(draw.renderer.surfaces[0])
+    draw.end()
+    assert draw.renderer.frame_stats["overflow_risk_frames"] == -1

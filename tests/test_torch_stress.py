@@ -139,6 +139,7 @@ def test_marker_vertex_stage_full_width():
 
     class Registry:
         pipelines = []
+        device = torch.device("cpu")
 
         def _register(self, pool, obj):
             pool.append(obj)

@@ -48,8 +48,9 @@ def test_compose_world_transforms(n, seed):
     parents, levels = random_forest(n, seed)
     want = jax.jit(lambda l: jvs.compose_world_transforms(
         l, levels, parents))(locals_)
-    got = tvs.compose_world_transforms(torch.from_numpy(locals_), levels,
-                                       parents)
+    got = tvs.compose_world_transforms(
+        torch.from_numpy(locals_),
+        tvs.level_indices(levels, parents, torch.device("cpu")))
     assert_bits_equal(want, got)
 
 
@@ -101,7 +102,7 @@ def test_terrain_vertex_batch_fn(size, seed):
     ctx = tvs.BatchVertexCtx(None, {}, torch.from_numpy(world[None]), None,
                              {0: torch.from_numpy(uniform[None]),
                               1: torch.from_numpy(hm[None])})
-    tris = tterrain._make_vertex_batch_fn(size)(ctx)
+    tris = tterrain._make_vertex_batch_fn(size, torch.device("cpu"))(ctx)
     assert_bits_equal(jclip, tris.clip)
     assert_bits_equal(jvary, tris.vary)
     np.testing.assert_array_equal(np.asarray(jids), tris.ids.numpy())
