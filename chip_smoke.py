@@ -66,7 +66,20 @@ at the first failed phase:
    bit, a late overflow detected through the asynchronous flag queue);
    a vertex function that calls ``.item()`` makes Draw.end raise. No
    frame any phase renders raises an overflow flag at big scale 1;
-12. a JSON line of the kernels, the card line, and the last line
+12. the behaviour scenes on the card: (a) every scripted scene of
+   ``myrenderer_tpu_torch/utils/scenes.py`` (vertex, u32-binding and
+   texture writes, an animated clear colour, vertex-buffer swaps,
+   resizes, surfaces that appear and disappear, instanced draws, ctx
+   fragment programs, eye-plane straddlers, sequential passes, a planar
+   vertex function) for 6 frames as graph replays, eagerly and on the
+   oracle backend: replay bit-equal to eager (framebuffer and winners)
+   and winners equal to the oracle's after every frame, with the graphs
+   captured and their pool; (b) ``tools/tpu_checks.py`` check 1: K1
+   against the full-frame oracle (``ops/raster_ref.py``) on random
+   batches of 16, 128 and 512 triangles at 96x256, on the 1080p demo's
+   frame-1 records and on their band at y0 = 540: winner diffs 0 and
+   num/den plane ulps 0, depth ulps printed;
+13. a JSON line of the kernels, the card line, and the last line
    {"ok": true, "device": {...}}.
 
 K1's bound at a shape is the larger of its bytes over 3.35 TB/s (what
@@ -1115,6 +1128,155 @@ def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
     return out
 
 
+SCENE_FRAMES = 6      # frames of each behaviour scene's script
+
+
+def behaviour_scenes(card: str) -> dict:
+    """Phase 12 (a): every scripted scene of ``utils/scenes.py`` for
+    SCENE_FRAMES frames in three ways on the card: CUDA graph replays
+    (the default), eager frames and the oracle backend. After every
+    frame the replay equals the eager frame bit for bit (framebuffer and
+    each pass's winners) and its frame-wide winners equal the oracle's.
+    Returns the K1 launches of the graph runs and, per scene, the graphs
+    captured and their pool MiB."""
+    from myrenderer_tpu_torch.ops import raster_cuda as rk
+    from myrenderer_tpu_torch.utils import scenes
+    launches, out = 0, {}
+    for name, build in scenes.SCRIPTED.items():
+        modes = {"graph": build("cuda", "auto"), "eager": build("cuda", "auto"),
+                 "oracle": build("cuda", "oracle")}
+        modes["eager"].draw._eager_frames = True
+        graphs, differ = {}, []
+        for k in range(SCENE_FRAMES):
+            for mode, sc in modes.items():
+                rk.K1.launches = 0
+                sc.step(k)
+                if mode == "graph":
+                    launches += rk.K1.launches
+            g, e, o = (modes[m] for m in ("graph", "eager", "oracle"))
+            plan = g.draw._get_plan(g.window)
+            if plan.compiled is None:
+                raise AssertionError(f"{name}: frame {k} was not a CUDA "
+                                     "graph")
+            graphs[id(plan.compiled)] = plan.compiled.pool_bytes
+            same = (bits_equal(g.window.framebuffer, e.window.framebuffer)
+                    and len(g.draw.last_winners) == len(e.draw.last_winners)
+                    and all(torch.equal(a, b) for a, b in
+                            zip(g.draw.last_winners, e.draw.last_winners)))
+            oracle = torch.equal(scenes.global_winners(g.draw),
+                                 scenes.global_winners(o.draw))
+            if not (same and oracle):
+                differ.append((k, "graph == eager" if not same else "",
+                               "winners == oracle" if not oracle else ""))
+        for mode, sc in modes.items():
+            assert_no_flags(sc, f"{name} ({mode})")
+        pool = sum(graphs.values()) / 2**20
+        held = sum(p.compiled.pool_bytes for p in
+                   modes["graph"].draw._plans.values()
+                   if p.compiled is not None) / 2**20
+        out[name] = {"graphs": len(graphs), "pool_mib": pool,
+                     "held_mib": held}
+        shape = tuple(modes["graph"].window.framebuffer.shape)
+        print(f"  {name}: {SCENE_FRAMES} frames (last {shape}), "
+              f"{len(graphs)} CUDA graph(s) captured, pools {pool:.1f} MiB "
+              f"({held:.1f} MiB still held by cached plans); "
+              + ("graph == eager bit for bit and winners == oracle after "
+                 "every frame" if not differ else f"DIFFER at {differ}"))
+        if differ:
+            raise AssertionError(f"{name}: frames differ {differ}")
+        del modes
+    print(f"  {len(scenes.SCRIPTED)} scenes; {launches} K1 launches in "
+          f"their graph frames; card: {card}")
+    return {"launches": launches, "scenes": out}
+
+
+def unpack_records(packed: torch.Tensor):
+    """The set-up triangles of packed records (``rc.pack_coeffs_full``),
+    as a TriCoeffs in id order: the oracle's lowest index at an exact
+    depth tie is then K1's lowest id. Returns (TriCoeffs, ids, order)."""
+    from myrenderer_tpu_torch.ops import raster_common as rc
+    order = torch.argsort(packed[:, 16], stable=True)
+    p = packed[order]
+    zhi = p[:, 15]
+    tc = rc.TriCoeffs(
+        edge_a=p[:, 0:9:3], edge_b=p[:, 1:9:3], edge_c=p[:, 2:9:3],
+        z_abc=p[:, 9:12], w_abc=p[:, 12:15],
+        col_abc=p[:, 20:32].reshape(-1, 4, 3).transpose(1, 2),
+        en_abc=p[:, 17:20], valid=zhi > 0, zhi=zhi)
+    return tc, p[:, 16].to(torch.int32), order
+
+
+def k1_against_oracle_case(label, packed, bbox, H, W, depth0, y0=0,
+                           band=None):
+    """K1 over packed records (binned here, on rows [y0, y0 + band) of
+    an H x W frame) against the full-frame oracle (``ops/raster_ref.py``)
+    over the same records: winner diffs and num/den plane ulps must be 0
+    (``tools/tpu_checks.py``'s checks); depth ulps are printed."""
+    from myrenderer_tpu_torch.ops import raster, raster_ref
+    from myrenderer_tpu_torch.ops import raster_cuda as rk
+    band = H if band is None else band
+    tc, ids, order = unpack_records(packed)
+    d_r, w_r = raster_ref.rasterize_visibility(
+        tc, H, W, depth=torch.full((H, W), depth0, device=packed.device),
+        bbox=tuple(c[order] for c in bbox))
+    num_r, den_r = raster_ref.planes(tc, w_r)
+    rows = slice(y0, y0 + band)
+    w_ids = torch.where(w_r >= 0, ids[w_r.clamp(min=0).long()], w_r)[rows]
+    index, starts, counts, overflow = raster.bin_packed(
+        packed, packed[:, 15] > 0, bbox, band, W, y0=y0)
+    if bool(overflow):
+        raise AssertionError(f"{label}: binning overflowed")
+    fused, winner = rk.rasterize_tiles(
+        packed, index, starts, counts,
+        torch.full((band, W), depth0, device=packed.device), y0=y0,
+        vp_height=H)
+    torch.cuda.synchronize()
+    wd = int((winner != w_ids).sum())
+    d_ulps = ulps(fused[0], d_r[rows])
+    p_ulps = max(ulps(fused[1], den_r[rows]), ulps(fused[2:6],
+                                                   num_r[:, rows]))
+    err = float(max((fused[0] - d_r[rows]).abs().max(),
+                    (fused[1] - den_r[rows]).abs().max(),
+                    (fused[2:6] - num_r[:, rows]).abs().max()))
+    print(f"  K1 against the oracle, {label}: {packed.shape[0]} records, "
+          f"covered {int((winner >= 0).sum())}, winner diffs {wd}, depth "
+          f"ulps {d_ulps}, num/den plane ulps {p_ulps}")
+    if wd or p_ulps:
+        raise AssertionError(f"K1 disagrees with the oracle ({label})")
+    return {"winner_diffs": wd, "depth_ulps": d_ulps, "plane_ulps": p_ulps,
+            "max_abs_err": err}
+
+
+def k1_against_oracle(demo_records, card: str) -> dict:
+    """Phase 12 (b), ``tools/tpu_checks.py`` check 1 on the card: K1
+    against the full-frame oracle on seeded random batches (the check's
+    ``random_triangles``, ``utils/trisets.py``) of T = 16, 128 and 512 at
+    96x256, on the 1080p demo's frame-1 records, and on one band of them
+    at y0 > 0."""
+    from myrenderer_tpu_torch.ops import raster
+    from myrenderer_tpu_torch.ops import raster_common as rc
+    from myrenderer_tpu_torch.utils.trisets import random_triangles
+    out = {}
+    H, W = 96, 256
+    for n, seed in ((16, 0), (128, 1), (512, 2)):
+        clip, vary = (torch.from_numpy(a).to("cuda")
+                      for a in random_triangles(n, seed))
+        tc = rc.triangle_setup(clip, vary, torch.ones(n, dtype=torch.bool,
+                                                      device="cuda"),
+                               W, H, "back")
+        out[f"T={n}"] = k1_against_oracle_case(
+            f"T={n} {H}x{W}", rc.pack_coeffs_full(tc),
+            raster.viewport_bbox(clip, W, H), H, W, 1.0)
+    (packed, _valid, bbox), (H, W), depth0 = demo_records
+    out["demo 1080p frame 1"] = k1_against_oracle_case(
+        "demo 1920x1080 frame 1", packed, bbox, H, W, depth0)
+    out["demo 1080p frame 1, band y0=540"] = k1_against_oracle_case(
+        "demo 1920x1080 frame 1, rows 540-809", packed, bbox, H, W, depth0,
+        y0=540, band=270)
+    print(f"  card: {card}")
+    return out
+
+
 def main() -> int:
     phase("1 environment")
     if not torch.cuda.is_available():
@@ -1428,6 +1590,7 @@ def main() -> int:
     band_frames.append(("demo 7680x4320", records[0], (4320, 7680),
                         float(store[0][4][0, 0])))
     del app, store, fb, records
+    demo_records = band_frames[0][1:]     # phase 12's oracle check
 
     phase("10 row bands on the card")
     from myrenderer_tpu_torch.parallel import make_mesh
@@ -1504,12 +1667,20 @@ def main() -> int:
     graph = compiled_frame_phase(card, {k: v["ms"]
                                         for k, v in shapes.items()})
 
-    phase("12 results")
+    phase("12 the behaviour scenes on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    scenes = behaviour_scenes(card)
+    oracle = k1_against_oracle(demo_records, card)
+    del demo_records
+
+    phase("13 results")
     by_path = {"demo_1080p": path_launches, "stress_4k": stress_launches,
                "sequential": seq_launches, "textured": tex_launches,
                "demo_8k": k8_launches,
                "demo_1080p_bands4": demo_bands_launches,
-               "stress_4k_bands4": stress_launches_b[4]}
+               "stress_4k_bands4": stress_launches_b[4],
+               "behaviour_scenes": scenes["launches"]}
     print(json.dumps({"kernels": [{
         "name": "K1 raster_tile",
         "route": "cuda",
@@ -1538,6 +1709,10 @@ def main() -> int:
         # phase 11: ms/frame graph against eager (medians in turns),
         # host syncs a steady-state frame, K1 inside the graph
         "graph": graph,
+        # phase 12: graphs captured and pool MiB per behaviour scene, and
+        # K1 against the full-frame oracle
+        "behaviour_scenes": scenes["scenes"],
+        "oracle_check": oracle,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -16,6 +16,12 @@ Run:  python -m myrenderer_tpu_torch.app.demo --size 1920x1080 \
           --frames 60 --time          (one CUDA card)
       python -m myrenderer_tpu_torch.app.demo --device cpu \
           --size 128x128 --out frame.png
+      python -m myrenderer_tpu_torch.app.demo --device cpu \
+          --backend oracle --size 96x96 --frames 3 --gif orbit.gif
+
+``--time`` prints ms/frame beside the last timed frame's overflow flag
+(``Draw.last_overflow``: the pair lane, the clip lane), as the JAX demo
+does.
 
 Row bands have no flag (nor has the JAX demo's): build
 ``DemoApp(..., mesh=parallel.make_mesh(...))`` from Python.
@@ -56,6 +62,7 @@ class DemoApp:
     width: int = 1280
     height: int = 720
     heightmap: Optional[object] = None      # path, array, or None=generated
+    backend: str = "auto"                   # Renderer raster_backend
     fixed_timestep: Optional[float] = 1.0 / 60.0
     device: str = "cuda"
     mesh: Optional[object] = None           # row bands (parallel.make_mesh)
@@ -65,7 +72,7 @@ class DemoApp:
         self.window = self.core.create_window(self.width, self.height,
                                               "Platypro's Thing")
         self.renderer = Renderer(self.core, device=self.device,
-                                 mesh=self.mesh)
+                                 raster_backend=self.backend, mesh=self.mesh)
         # scene construction is DEFERRED to the window_open event, the
         # reference's lifecycle (App.zig:54-92 builds the scene inside
         # the event branch of the first tick). create_window enqueued
@@ -136,17 +143,22 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="write last frame PNG")
     ap.add_argument("--heightmap", default=None,
                     help="16-bit grayscale PNG (default: generated)")
+    ap.add_argument("--backend", default="auto", choices=["auto", "oracle"])
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without it)")
     ap.add_argument("--time", action="store_true",
                     help="print steady-state ms/frame")
     ap.add_argument("--dump-dir", default=None,
                     help="write every frame as frame_%%04d.png")
+    ap.add_argument("--gif", default=None,
+                    help="write all --frames frames as one animated GIF"
+                         " — the headless stand-in for the reference's"
+                         " animated window (App.zig:40,52)")
     args = ap.parse_args(argv)
 
     w, h = (int(v) for v in args.size.split("x"))
     app = DemoApp(width=w, height=h, heightmap=args.heightmap,
-                  device=args.device)
+                  backend=args.backend, device=args.device)
     dev = app.renderer.device
 
     def sync():
@@ -165,6 +177,21 @@ def main(argv=None):
         print(f"wrote {args.frames} frames to {args.dump_dir}")
         return
 
+    if args.gif:
+        from PIL import Image
+        imgs = []
+        for _ in range(args.frames):
+            app.tick()
+            imgs.append(Image.fromarray(
+                app.window.read_pixels(), "RGBA").convert("RGB"))
+        # replay at the app's fixed step (GIF durations are in ms and
+        # most decoders clamp below ~20 ms)
+        dur = max(20, round((app.fixed_timestep or 1 / 60) * 1000))
+        imgs[0].save(args.gif, save_all=True, append_images=imgs[1:],
+                     duration=dur, loop=0)
+        print(f"wrote {args.gif} ({args.frames} frames)")
+        return
+
     app.tick()  # warm-up (builds K1 on first use)
     if args.time and args.frames > 1:
         sync()
@@ -176,8 +203,10 @@ def main(argv=None):
         dt = time.perf_counter() - t0
         name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu")
+        # a frame that dropped triangles must not pass as a faster one
+        ovf = app.draw.last_overflow.cpu().numpy()
         print(f"{n} frames: {dt * 1000 / n:.3f} ms/frame "
-              f"({n / dt:.1f} fps) on {name}")
+              f"({n / dt:.1f} fps) overflow={ovf.tolist()} on {name}")
     elif args.frames > 1:
         for _ in range(args.frames - 1):
             app.tick()

@@ -12,6 +12,11 @@ batches of one surface: one merged raster pass, one K1 launch.
 Run:  python -m myrenderer_tpu_torch.app.stress --frames 20 --time
       python -m myrenderer_tpu_torch.app.stress --device cpu \\
           --size 96x96 --terrain 48 --instances 16 --out stress.png
+
+After the timed frames the CLI prints the last frame's overflow flag
+(``Draw.last_overflow``: the pair lane, the clip lane) and exits through
+``SystemExit`` when it is set: a frame that dropped triangles must not
+pass as a faster one (the JAX stress CLI's guard).
 """
 
 from __future__ import annotations
@@ -166,6 +171,7 @@ def main(argv=None):
                     help="frames after one warm-up frame")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; raises without it)")
+    ap.add_argument("--backend", default="auto", choices=["auto", "oracle"])
     ap.add_argument("--out", default=None, help="write last frame PNG")
     ap.add_argument("--time", action="store_true",
                     help="print ms/frame over the frames after warm-up")
@@ -173,7 +179,8 @@ def main(argv=None):
 
     w, h = (int(v) for v in args.size.split("x"))
     app = StressApp(width=w, height=h, terrain_size=args.terrain,
-                    instances=args.instances, device=args.device)
+                    instances=args.instances, device=args.device,
+                    backend=args.backend)
     dev = app.renderer.device
 
     def sync():
@@ -189,11 +196,17 @@ def main(argv=None):
     for _ in range(args.frames):
         app.tick()
     sync()
+    ovf = app.draw.last_overflow.cpu().numpy()
     if args.time and args.frames:
         dt = (time.perf_counter() - t0) / args.frames
         print(f"{args.frames} frames: {dt * 1000:.3f} ms/frame "
               f"({1 / dt:.2f} fps, {app.triangles / dt / 1e6:.2f} Mtri/s) "
-              f"on {device_line(dev)}", flush=True)
+              f"overflow={ovf.tolist()} on {device_line(dev)}", flush=True)
+    else:
+        print(f"overflow={ovf.tolist()}", flush=True)
+    if ovf.any():
+        raise SystemExit("OVERFLOW during timed loop — the frames dropped "
+                         "triangles, timing not comparable")
     if args.out:
         from ..utils.png import save_rgba8
         save_rgba8(args.out, app.window.read_pixels())

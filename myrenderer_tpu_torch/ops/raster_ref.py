@@ -15,43 +15,115 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import raster_common as rc
 
-# elements of one [chunk, H, W] temporary (16 MiB of f32)
+# elements of one [chunk, h, w] temporary (16 MiB of f32)
 CHUNK_ELEMENTS = 1 << 22
+
+# pixels added around a triangle's bounding box: the box's rounding error
+# is far below a pixel, so the window holds every pixel it covers
+_WINDOW_PAD = 2
+
+
+def _chunks(n: int, height: int, width: int, bbox, valid):
+    """Consecutive triangle chunks [(c0, c1, y0, y1, x0, x1)] and the
+    pixel window each evaluates: the union of its valid triangles'
+    padded boxes (the whole frame without ``bbox``), a chunk growing
+    while ``chunk * window`` stays within CHUNK_ELEMENTS. A chunk of
+    invalid triangles only has no window (they cover nothing)."""
+    if bbox is None:
+        step = max(1, CHUNK_ELEMENTS // max(1, height * width))
+        return [(c0, min(c0 + step, n), 0, height, 0, width)
+                for c0 in range(0, n, step)]
+    b = torch.stack([c.float() for c in bbox], 1).cpu().numpy()
+    ok = valid.cpu().numpy()
+    full = ~np.isfinite(b).all(1)
+    lo_x = np.where(full, 0, np.clip(np.floor(b[:, 0]) - _WINDOW_PAD, 0,
+                                     width))
+    hi_x = np.where(full, width, np.clip(np.ceil(b[:, 1]) + _WINDOW_PAD + 1,
+                                         0, width))
+    lo_y = np.where(full, 0, np.clip(np.floor(b[:, 2]) - _WINDOW_PAD, 0,
+                                     height))
+    hi_y = np.where(full, height, np.clip(np.ceil(b[:, 3]) + _WINDOW_PAD
+                                          + 1, 0, height))
+    ok &= (hi_x > lo_x) & (hi_y > lo_y)
+    out = []
+    c0, win = 0, None
+    for i in np.nonzero(ok)[0]:
+        box = (int(lo_y[i]), int(hi_y[i]), int(lo_x[i]), int(hi_x[i]))
+        grown = box if win is None else (
+            min(win[0], box[0]), max(win[1], box[1]),
+            min(win[2], box[2]), max(win[3], box[3]))
+        area = (grown[1] - grown[0]) * (grown[3] - grown[2])
+        if win is not None and (i + 1 - c0) * area > CHUNK_ELEMENTS:
+            out.append((c0, int(i), *win))
+            c0, grown = int(i), box
+        win = grown
+    if win is not None:
+        out.append((c0, n, *win))
+    return out
 
 
 def rasterize_visibility(tc: rc.TriCoeffs, height: int, width: int,
                          depth: Optional[torch.Tensor] = None,
                          winner: Optional[torch.Tensor] = None,
-                         base_index: int = 0):
+                         base_index: int = 0, bbox=None):
     """Visibility over the full frame: returns (depth f32[H, W], winner
     i32[H, W]), winner being the front-most triangle's index plus
-    ``base_index`` (-1 where nothing covers)."""
+    ``base_index`` (-1 where nothing covers).
+
+    ``bbox`` (``raster.viewport_bbox`` of the triangles' clip positions)
+    lets each chunk evaluate only the pixels its triangles' boxes reach,
+    padded by ``_WINDOW_PAD``; the result is the same bit for bit (each
+    pixel's tests are its own), read from the boxes once on the host."""
     dev = tc.en_abc.device
-    px, py = rc.pixel_grids(height, width, device=dev)
     if depth is None:
         depth = torch.ones((height, width), dtype=torch.float32, device=dev)
     if winner is None:
         winner = torch.full((height, width), -1, dtype=torch.int32,
                             device=dev)
+    depth, winner = depth.clone(), winner.clone()
     packed = rc.pack_coeffs(tc)                           # [T, 16]
-    chunk = max(1, CHUNK_ELEMENTS // max(1, height * width))
     inf = torch.tensor(float("inf"), device=dev)
-    for c0 in range(0, packed.shape[0], chunk):
-        rec = packed[c0:c0 + chunk][:, None, None, :]     # [n, 1, 1, 16]
-        cov, z = rc.coverage_depth(rec, px, py)           # [n, H, W]
-        hit = cov & (z < depth)
+    for c0, c1, y0, y1, x0, x1 in _chunks(packed.shape[0], height, width,
+                                          bbox, tc.valid):
+        px, py = rc.pixel_grids(y1 - y0, x1 - x0, y0, x0, device=dev)
+        rec = packed[c0:c1][:, None, None, :]             # [n, 1, 1, 16]
+        cov, z = rc.coverage_depth(rec, px, py)           # [n, h, w]
+        d_in = depth[y0:y1, x0:x1]
+        hit = cov & (z < d_in)
         zc = torch.where(hit, z, inf)
         zmin = zc.amin(0)
         at_min = hit & (zc == zmin)
         first = at_min.to(torch.int8).argmax(0)           # lowest index
-        depth, winner = rc.depth_test_update(
-            at_min.any(0), z.gather(0, first[None])[0], depth, winner,
-            first + (base_index + c0))
+        depth[y0:y1, x0:x1], winner[y0:y1, x0:x1] = rc.depth_test_update(
+            at_min.any(0), z.gather(0, first[None])[0], d_in,
+            winner[y0:y1, x0:x1], first + (base_index + c0))
     return depth, winner
+
+
+def planes(tc: rc.TriCoeffs, winner: torch.Tensor):
+    """The winners' varying planes at the frame's pixel centres:
+    (num f32[C, H, W], den f32[H, W]), each plane
+    evaluated as ``a*px + b*py + c`` on its coefficient bits (numerator
+    0, denominator 1 where nothing covers), the convention of K1's
+    fused planes. The check of K1 against the oracle on the card reads
+    them (the JAX package's ``tools/tpu_checks.py`` ``oracle_planes``)."""
+    height, width = winner.shape
+    px, py = rc.pixel_grids(height, width, device=winner.device)
+    covered = winner >= 0
+    t = torch.clamp(winner, min=0).long()
+    en = tc.en_abc[t]                                     # [H, W, 3]
+    col = tc.col_abc[t]                                   # [H, W, 3, C]
+    den = rc.edge_eval(en[..., 0], en[..., 1], en[..., 2], px, py)
+    num = rc.edge_eval(col[..., 0, :], col[..., 1, :], col[..., 2, :],
+                       px[..., None], py[..., None])
+    num = torch.where(covered[..., None], num, torch.zeros_like(num))
+    den = torch.where(covered, den, torch.ones_like(den))
+    return torch.movedim(num, -1, 0), den
 
 
 def shade(tc: rc.TriCoeffs, winner: torch.Tensor, fb: torch.Tensor,

@@ -78,12 +78,33 @@ def cull_aabb(clip_mats: torch.Tensor, aabb_min: torch.Tensor,
     return torch.where(finite, ~outside, torch.ones_like(outside))
 
 
+def _view_bits(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x.view(dtype)`` between 32-bit dtypes, also on a tensor batched
+    by ``torch.func.vmap`` (a vertex function's binding words): some
+    torch releases have no batching rule for ``view.dtype``, so the
+    batched wrapper is taken off, its tensor viewed and wrapped again
+    (the shape, and so the batch dim, is unchanged)."""
+    from torch._C import _functorch as ft
+    if ft.is_batchedtensor(x):
+        inner = _view_bits(ft.get_unwrapped(x), dtype)
+        return ft._add_batch_dim(inner, ft.maybe_get_bdim(x),
+                                 ft.maybe_get_level(x))
+    return x.view(dtype)
+
+
 def bitcast_u32(x) -> torch.Tensor:
     """Reinterpret f32 bits as u32: how vertex and fragment functions
     read integer fields of managed bindings (a WGSL ``u32`` uniform
     member, e.g. ``Terrain.zig:56`` ``size: u32``). Bit-exact: managed
     stores keep integer payloads as raw bits."""
-    return torch.as_tensor(x, dtype=torch.float32).view(torch.uint32)
+    return _view_bits(torch.as_tensor(x, dtype=torch.float32), torch.uint32)
+
+
+def bitcast_i32(x) -> torch.Tensor:
+    """f32 bits as int32: :func:`bitcast_u32`'s words, signed, for
+    comparisons with integer constants (u32 tensors support few
+    operations)."""
+    return _view_bits(torch.as_tensor(x, dtype=torch.float32), torch.int32)
 
 
 def bitcast_f32(x) -> torch.Tensor:
@@ -91,7 +112,7 @@ def bitcast_f32(x) -> torch.Tensor:
     x = torch.as_tensor(x)
     if x.element_size() != 4:
         raise TypeError(f"bitcast_f32 needs 32-bit elements, got {x.dtype}")
-    return x.view(torch.float32)
+    return _view_bits(x, torch.float32)
 
 
 class VertexCtx:

@@ -90,8 +90,9 @@ BIG_SCALE_MAX = 256
 # + K1 on the card, its plain version on the CPU) or "oracle"
 BACKENDS = {"auto": "tile", "oracle": "oracle"}
 
-# frame plans kept per Draw (one per scene version / surface set /
-# capacity rung), each with its CUDA graph on a card
+# frame plans kept per Draw (one per surface set / window size /
+# capacity rung of the current scene version), each with its CUDA graph
+# on a card
 PLAN_CACHE_SIZE = 8
 
 
@@ -427,8 +428,9 @@ def _sequential_passes(plan: _FramePlan, args: dict, products, layout, fb,
                 tris, v, ovf = rc.clip_near_capacity(tris, valid, cap)
                 tc = rc.triangle_setup(tris.clip, tris.vary, v, W, H, cull,
                                        planar=tris.planar, oracle=True)
-                d, w = raster_ref.rasterize_visibility(tc, H, W,
-                                                       depth=depth[0])
+                d, w = raster_ref.rasterize_visibility(
+                    tc, H, W, depth=depth[0],
+                    bbox=raster.viewport_bbox(tris.clip, W, H))
                 fb = [raster_ref.shade(tc, w, fb[0], fn, ctx=fctx)]
                 depth2, winner = [d], [w]
             flags["clip"].append(ovf)
@@ -710,6 +712,10 @@ class Draw:
         backend = self._resolve_backend()
         warm = big_scale is not None
         big_scale = self.big_scale if big_scale is None else big_scale
+        # a surface whose window was resized (Core.resize_window) bumps
+        # the scene version here, before the key is made: one new plan
+        for s, _ in self._items:
+            s.rebuild()
         key = (rend.scene_version, window.id,
                tuple(s.id for s, _ in self._items),
                tuple(c is not None for _, c in self._items),
@@ -726,7 +732,6 @@ class Draw:
         for s, _ in self._items:
             if s.window is not window:
                 raise ValueError("surface targets a different window")
-            s.rebuild()
             surfaces.append(_build_batches(s))
         mesh = rend.mesh
         if mesh is not None:
@@ -750,6 +755,10 @@ class Draw:
             debug_winner=rend.debug_winner, mesh=mesh, big_scale=big_scale,
             level_index=vs.level_indices(levels, parents, rend.device))
         plan.merged = _mergeable(plan)
+        # the scene version only grows: a plan of an older one is never
+        # used again, and on a card it holds a CUDA graph and its pool
+        self._plans = {k: p for k, p in self._plans.items()
+                       if k[0] == rend.scene_version}
         if len(self._plans) >= PLAN_CACHE_SIZE:
             del self._plans[next(iter(self._plans))]
         self._plans[key] = plan

@@ -51,9 +51,9 @@ class _ManagedStore:
     buffer (``Instance.zig:165-187``): float payloads land as their f32
     bits, integer/bytes payloads as their own bits. The device array is
     an f32 *view* of those bits — float fields read naturally; integer
-    fields are recovered bit-exactly with ``Tensor.view(torch.int32)``
-    in the vertex function (no arithmetic touches them, so no
-    NaN/denormal hazard).
+    fields are recovered bit-exactly with ``vertex_stage.bitcast_u32``
+    or ``bitcast_i32`` in the vertex function (no arithmetic touches
+    them, so no NaN/denormal hazard).
     """
 
     def __init__(self, size_bytes: int):
@@ -150,7 +150,7 @@ class Instance:
         the reference's untyped ``queue.writeBuffer``
         (``Instance.zig:165-187``). Payloads may be float arrays/scalars
         (stored as f32), integer arrays/scalars (stored as their 32-bit
-        bits — read back with ``Tensor.view(torch.int32)``), or raw
+        bits — read back with ``vertex_stage.bitcast_i32``), or raw
         ``bytes`` (multiple of 4)."""
         if location not in self.stores:
             raise ValueError(f"location {location} is not a managed binding")

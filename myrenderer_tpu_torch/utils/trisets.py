@@ -8,8 +8,9 @@ import numpy as np
 
 
 def random_triangles(n, seed, w_range=(0.8, 5.0), mixed_winding=False):
-    """Random clip-space triangles, clockwise on screen (the JAX
-    package's test generator); ``w_range`` reaching below zero makes
+    """Random clip-space triangles, clockwise on screen (the generator
+    of the JAX package's tests and of ``tools/tpu_checks.py``: the same
+    seed gives the same triangles); ``w_range`` reaching below zero makes
     eye-plane straddlers, ``mixed_winding`` flips half of them."""
     rng = np.random.default_rng(seed)
     ndc = rng.uniform(-1.2, 1.2, (n, 3, 2)).astype(np.float32)

@@ -35,6 +35,7 @@ PORT_MODULES = [
     "myrenderer_tpu_torch.tools.k1_lab",
     "myrenderer_tpu_torch.utils.png",
     "myrenderer_tpu_torch.utils.profiling",
+    "myrenderer_tpu_torch.utils.scenes",
     "myrenderer_tpu_torch.utils.trisets",
 ]
 

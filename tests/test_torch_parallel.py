@@ -402,3 +402,10 @@ def test_k1_band_matches_plain_version_on_card(set_name, cuda_device):
     assert int((rwinner >= 0).sum()) > 0
     assert torch.equal(winner, rwinner)
     assert torch.equal(fused.view(torch.int32), rfused.view(torch.int32))
+
+
+def test_pre_kernel_stage_actually_partitions():
+    """``tests/test_parallel.py``'s case of the same name: the vertex
+    stage, setup and pack split over the mesh's devices. The port runs
+    the pre-kernel stage once, on the mesh's first device."""
+    pytest.skip("queue 1 item 4")

@@ -85,6 +85,21 @@ def test_bitcasts_round_trip():
         tvs.bitcast_f32(torch.zeros(2, dtype=torch.int64))
 
 
+def test_bitcasts_under_vmap():
+    """The bitcasts of a vertex function's binding words, batched by
+    vmap (two levels), give the unbatched bits: the words are viewed
+    under the batching wrapper, which some torch releases cannot do."""
+    words = np.array([[0x3F800000, 7, 0xFFC00123, 0xDEADBEEF],
+                      [0, 1, 0x80000000, 0x7F800001]], np.uint32)
+    f = torch.from_numpy(words.view(np.float32))
+    for fn, dtype in ((tvs.bitcast_u32, np.uint32),
+                      (tvs.bitcast_i32, np.int32)):
+        got = torch.func.vmap(torch.func.vmap(fn))(f)
+        np.testing.assert_array_equal(got.numpy(), words.view(dtype))
+    back = torch.func.vmap(tvs.bitcast_f32)(tvs.bitcast_i32(f))
+    np.testing.assert_array_equal(back.numpy().view(np.uint32), words)
+
+
 def test_binding_at_under_vmap():
     """``binding_at`` inside the vmapped vertex stage reads one element
     per vertex from the instance's row, equal to the JAX package's."""
