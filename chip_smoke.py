@@ -48,20 +48,29 @@ at the first failed phase:
    for bit, on the row bands of the 1080p, 4K and 8K frame-1 records
    and on thin slivers in the last 270-row band of a 7680x4320 frame;
    DemoApp(1920, 1080) on 4 bands of cuda:0 (frames 1 and 31) and the
-   stress scene on 4 and 8 bands, winners and framebuffers bit-equal to
-   the single-device frames, one K1 launch per band and frame; with
-   more than one card (d), the demo and the stress scene with one band
-   a card, bit-equal and timed beside one device; ms/frame of each beside
-   the single-device frame in turns in the same call, and host syncs
-   per frame by the line that made them;
+   stress scene on 4 and 8 bands, sharded (each batch packed in one
+   piece a band of about T / bands rows, shown from an eager frame's
+   packs), winners and framebuffers bit-equal to the single-device
+   frames, one K1 launch per band and frame; with more than one card
+   (d), the matrix of peer access, the demo (frames 1 and 31) and the
+   stress scene (frame 1) with one band a card as per-card graph
+   replays, bit-equal to one card, 0 host syncs a steady-state frame,
+   the all-gather's bytes a frame, and ms/frame in turns beside one
+   card's graph frame; ms/frame of each beside the single-device frame
+   in turns in the same call, and host syncs per frame by the line that
+   made them;
 11. the compiled frame (``renderer/compiled.py``): the 1080p demo (31
    frames), the demo on 4 bands of one card (31) and the stress scene
-   (20) as CUDA graph replays bit-equal, framebuffer and winners, to
-   the eager frame after every frame, one K1 launch a band and frame;
-   host syncs of a steady-state frame by line (0 on the graph, 1 under
-   strict_overflow); ms/frame graph against eager in turns; device busy
+   (20), and the stress scene on 4 bands of one card (20), as CUDA graph
+   replays (a mesh frame as segmented graphs: the shards' graph and the
+   bands' graph) bit-equal, framebuffer and winners, to the eager frame
+   after every frame, one K1 launch a band and frame; host syncs of a
+   steady-state frame by line (0 on the graph, also on 4 bands, 1 under
+   strict_overflow); ms/frame graph against eager in turns, and the 4
+   band graph frames against one device's graph frame in turns; device busy
    share, device ops a frame and K1's time inside the replay from
-   torch.profiler; each graph's capture time and pool memory; the
+   torch.profiler; each graph's capture time and pool memory (each
+   segment's on a mesh); the
    capacity ladder on the card (a starved first frame recovered bit for
    bit, a late overflow detected through the asynchronous flag queue);
    a vertex function that calls ``.item()`` makes Draw.end raise. No
@@ -127,12 +136,17 @@ def phase(name: str):
     print(f"[phase] {name}", flush=True)
 
 
-def card_line() -> str:
+def card_lines() -> list:
+    """Each card's name and power limit, as nvidia-smi gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card_line() -> str:
+    return card_lines()[0]
 
 
 def bin_random(n, seed, H, W, dup, dev, box=None, reverse=False):
@@ -359,12 +373,18 @@ def plain_k1():
         raster.rasterize_tiles = orig
 
 
+def sync_all():
+    """Wait for every visible card (a mesh's frame ends on all of them)."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def time_frames(app, n: int) -> float:
-    torch.cuda.synchronize()
+    sync_all()
     t0 = time.perf_counter()
     for _ in range(n):
         app.tick()
-    torch.cuda.synchronize()
+    sync_all()
     return (time.perf_counter() - t0) * 1000.0 / n
 
 
@@ -431,7 +451,12 @@ def fenced_layers(totals: dict):
                (raster, "bin_bands", "binning"),
                (raster, "rasterize_tiles", "K1"),
                (raster, "shade_from_planes_ranges", "shade"),
-               (draw.Draw, "_gather_args", "_gather_args (host to device)")]
+               (draw.Draw, "_gather_args", "_gather_args (host to device)"),
+               # a mesh frame's shards and its all-gather
+               (draw, "_shard_vertex_products", "vertex stage (incl. cull)"),
+               (draw, "_shard_setup", "clip + setup + pack"),
+               (draw, "_mesh_setup", "clip + setup + pack"),
+               (draw, "all_gather", "all-gather")]
     saved = [(owner, name, getattr(owner, name)) for owner, name, _ in targets]
 
     def fence(fn, label):
@@ -668,6 +693,50 @@ def assert_same_frame(banded, fb, winner, label):
           f"bands)")
 
 
+def pack_split(make_app, label: str):
+    """One eager frame of ``make_app()`` with the record pack recorded:
+    every batch is packed in one piece a shard (shard k holds triangles
+    [k * ceil(T / rows), ...)), plus its appendee block of 2 * 128 clip
+    slots once a distinct device, and no piece holds a whole batch of
+    more than one shard's triangles. Prints each batch's pieces."""
+    from myrenderer_tpu_torch.ops import raster_common as rc
+    from myrenderer_tpu_torch.renderer.draw import CLIP_CAPACITY
+    app = make_app()
+    app.draw._eager_frames = True
+    sizes = []
+    orig = rc.pack_coeffs_full
+
+    def pack(tc, *args, **kw):
+        out = orig(tc, *args, **kw)
+        sizes.append(out.shape[0])
+        return out
+
+    rc.pack_coeffs_full = pack
+    try:
+        app.tick()
+    finally:
+        rc.pack_coeffs_full = orig
+    plan = next(iter(app.draw._plans.values()))
+    batches = [b for batches in plan.surfaces for b in batches]
+    want = collections.Counter()
+    for b in batches:
+        want.update(hi - lo for lo, hi in b.shards)
+        want[2 * CLIP_CAPACITY * plan.big_scale] += len(plan.devices)
+    if collections.Counter(sizes) != want:
+        raise AssertionError(f"{label}: packs of {sorted(sizes)} rows, not "
+                             f"one a shard {sorted(want.elements())}")
+    for b in batches:
+        pieces = [hi - lo for lo, hi in b.shards]
+        print(f"  {label}: a batch of {b.tri_count} triangles packed in "
+              f"{len(pieces)} shard pieces of {sorted(set(pieces))} rows "
+              f"(T / {len(pieces)} = {b.tri_count / len(pieces):.1f})")
+    if any(n == b.tri_count > max(hi - lo for lo, hi in b.shards)
+           for b in batches for n in sizes):
+        raise AssertionError(f"{label}: a whole batch was packed at once")
+    del app
+    gc.collect()
+
+
 def banded_demo(devices, single_frames: dict, label):
     """DemoApp(1920, 1080) banded over ``devices`` for 31 frames, held
     to ``single_frames`` {frame: (framebuffer, winner)} at frames 1 and
@@ -701,25 +770,56 @@ def single_demo_frames():
     return single, frames
 
 
-def bands_over_cards(single, single_frames, card):
-    """One band a card over every card (as many as divide 1080): the
-    1080p demo (frames 1 and 31) and the stress scene (frame 1)
-    bit-equal to one device, then each timed beside one device in
-    turns."""
+def peer_matrix(n: int) -> str:
+    return "; ".join(
+        f"cuda:{i} -> " + " ".join(
+            "self" if i == j else
+            ("yes" if torch.cuda.can_device_access_peer(i, j) else "no")
+            for j in range(n)) for i in range(n))
+
+
+def gather_line(app, label):
+    """The all-gather's bytes a frame of ``app``'s mesh graph frame."""
+    cf = next(iter(app.draw._plans.values())).compiled
+    print(f"  {label}: the all-gather copies {cf.gather_bytes} bytes a frame "
+          f"between cards ({cf.gather_bytes / 2**20:.1f} MiB; "
+          f"{len(cf.graphs)} cards, {sum(len(g) for g in cf.graphs)} "
+          f"graphs, capture {cf.capture_seconds:.3f} s, pools "
+          f"{cf.pool_bytes / 2**20:.1f} MiB)")
+    return cf.gather_bytes
+
+
+def bands_over_cards(single, single_frames, cards):
+    """One band a card over every card (as many as divide 1080), each
+    card's share in its own CUDA graphs: the 1080p demo (frames 1 and
+    31) and the stress scene (frame 1) bit-equal to one card, 0 host
+    syncs a steady-state frame, the all-gather's bytes a frame, then
+    each timed beside one card's graph frame in turns. Returns the
+    results."""
     from myrenderer_tpu_torch.app.stress import StressApp
     from myrenderer_tpu_torch.parallel import make_mesh
     n = torch.cuda.device_count()
     while 1080 % n:
         n -= 1
+    card = "; ".join(f"cuda:{i} {c}" for i, c in enumerate(cards))
+    print(f"  peer access: {peer_matrix(torch.cuda.device_count())}")
     devices = [torch.device("cuda", i) for i in range(n)]
     banded = banded_demo(devices, single_frames,
                          f"demo 1920x1080 on {n} cards")
+    out = {"cards": n, "card_lines": cards,
+           "demo_gather_bytes": gather_line(banded, f"demo on {n} cards")}
     single.renderer.debug_winner = banded.renderer.debug_winner = False
     apps = {1: single, n: banded}
     ms, launches = time_in_turns(apps, BAND_FRAMES)
-    report_turns("demo 1920x1080, one band a card", ms, launches,
-                 {k: syncs_per_frame(a) for k, a in apps.items()},
-                 BAND_FRAMES, card)
+    syncs = {k: syncs_per_frame(a) for k, a in apps.items()}
+    report_turns("demo 1920x1080, one band a card (graphs)", ms, launches,
+                 syncs, BAND_FRAMES, card)
+    if sum(syncs[n].values()):
+        raise AssertionError(f"the demo on {n} cards syncs the host")
+    print(f"  (the eager frame, one band a card on four H100 80GB HBM3 at "
+          f"700 W: demo 28.512 against 22.991 ms/frame on one card)")
+    out["demo_ms"] = {k: float(np.median(v)) for k, v in ms.items()}
+    out["demo_launches"] = launches[n]
     single.renderer.debug_winner = True
     del apps, banded
     gc.collect()
@@ -732,12 +832,21 @@ def bands_over_cards(single, single_frames, card):
     assert_same_frame(apps[n], apps[1].window.framebuffer,
                       apps[1].draw.last_winners[0],
                       f"stress 3840x2160 frame 1 on {n} cards")
+    out["stress_gather_bytes"] = gather_line(apps[n],
+                                             f"stress on {n} cards")
     ms, launches = time_in_turns(apps, BAND_STRESS_FRAMES)
     for k, app in apps.items():
         assert_no_flags(app, f"stress 3840x2160 on {k} cards")
-    report_turns("stress 3840x2160, one band a card", ms, launches,
-                 {k: syncs_per_frame(a) for k, a in apps.items()},
-                 BAND_STRESS_FRAMES, card)
+    syncs = {k: syncs_per_frame(a) for k, a in apps.items()}
+    report_turns("stress 3840x2160, one band a card (graphs)", ms, launches,
+                 syncs, BAND_STRESS_FRAMES, card)
+    if sum(syncs[n].values()):
+        raise AssertionError(f"the stress scene on {n} cards syncs the host")
+    print(f"  (the eager frame, one band a card on four H100 80GB HBM3 at "
+          f"700 W: stress 32.423 against 25.853 ms/frame on one card)")
+    out["stress_ms"] = {k: float(np.median(v)) for k, v in ms.items()}
+    out["stress_launches"] = launches[n]
+    return out
 
 
 def assert_no_flags(app, label):
@@ -829,11 +938,13 @@ def graph_against_eager(make_app, frames: int, label: str):
     plan = next(iter(apps["graph"].draw._plans.values()))
     if plan.compiled is None:
         raise AssertionError(f"{label}: no CUDA graph was captured")
-    print(f"  {label}: graph replay and eager frames bit-equal, "
+    kind = ("segmented graphs (shards, then bands)" if bands > 1
+            else "graph")
+    print(f"  {label}: {kind} replay and eager frames bit-equal, "
           f"framebuffer and winners, in each of {frames} frames; "
           f"{bands} K1 launch{'es' if bands > 1 else ''} a frame each; no "
           f"overflow flag at big scale 1")
-    return apps["graph"], apps["eager"]
+    return apps["graph"], apps["eager"], launches["graph"]
 
 
 def n_bands(app) -> int:
@@ -862,6 +973,34 @@ def graph_turns(apps: dict, n: int, bands: int, label: str, card: str):
           f"turn, median of {BAND_ROUNDS} rounds; {bands} K1 launch"
           f"{'es' if bands > 1 else ''} a frame; card: {card}")
     return med
+
+
+def mesh_turns(single, banded, n: int, label: str, card: str, ref: str):
+    """ms/frame of a one-device graph app and a 4-band graph app of one
+    card in turns (``n`` fenced frames a turn); returns the medians."""
+    apps = {1: single, 4: banded}
+    ms, launches = time_in_turns(apps, n)
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    print(f"  {label}, graphs, in turns: {med[4]:.3f} ms/frame on 4 bands "
+          f"of one card (rounds {', '.join(f'{r:.3f}' for r in ms[4])}; "
+          f"segmented: shards, then bands) against {med[1]:.3f} on one "
+          f"device (rounds {', '.join(f'{r:.3f}' for r in ms[1])}); "
+          f"{launches[4] // (n * BAND_ROUNDS)} K1 launches a frame on 4 "
+          f"bands; before sharding: {ref}; card: {card}")
+    return med
+
+
+def capture_line(app, label: str):
+    """Print the capture time and pool memory of ``app``'s graph(s);
+    returns (seconds, pool bytes)."""
+    cf = next(iter(app.draw._plans.values())).compiled
+    print(f"  {label}: capture {cf.capture_seconds:.3f} s, graph pool "
+          f"{cf.pool_bytes / 2**20:.1f} MiB, {cf.k1_launches} K1 "
+          f"launch(es) a replay")
+    for device, segment, secs, pool in getattr(cf, "segments", ()):
+        print(f"    {segment} graph on {device}: captured in {secs:.3f} s, "
+              f"pool {pool / 2**20:.1f} MiB")
+    return cf.capture_seconds, cf.pool_bytes
 
 
 LADDER_SIZE = 256
@@ -1040,6 +1179,7 @@ def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
     bands = graph_against_eager(
         lambda: DemoApp(1920, 1080, mesh=make_mesh(devices=[dev] * 4)),
         31, "demo 1920x1080 on 4 bands of one card, 31 frames")
+    out["demo_bands4_graph_launches"] = bands[2]
     # (b) host syncs a steady-state frame, by line
     syncs = {"demo graph": syncs_per_frame(demo[0]),
              "demo eager": syncs_per_frame(demo[1]),
@@ -1065,8 +1205,13 @@ def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
     out["demo_bands4_ms"] = graph_turns(
         {"graph": bands[0], "eager": bands[1]}, BAND_FRAMES, 4,
         "demo 1920x1080 on 4 bands of one card", card)
+    out["demo_bands4_vs_one"] = mesh_turns(
+        demo[0], bands[0], BAND_FRAMES, "demo 1920x1080", card,
+        "one graph, 3.369 ms/frame on 4 bands of one card and 2.471 on "
+        "one device (H100 80GB HBM3, 700 W)")
     # (d) device busy share and device ops a frame, K1 inside the graph
-    for label, app in (("demo graph", demo[0]), ("demo eager", demo[1])):
+    for label, app in (("demo graph", demo[0]), ("demo eager", demo[1]),
+                       ("demo 4 bands graph", bands[0])):
         wall, busy, ops, by_name = profile_frames(
             app, PROFILE_FRAMES, "trace_" + label.replace(" ", "_"))
         k1 = by_name.get(next((k for k in by_name
@@ -1077,15 +1222,11 @@ def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
         print(f"  profiled {label}: {wall:.3f} ms/frame wall, device busy "
               f"{busy:.3f} ms/frame ({100.0 * busy / wall:.1f} %), "
               f"{ops:.0f} device ops/frame; K1 in these frames "
-              + (f"{k1_ms:.4f} ms ({k1[1]} launches)" if k1_ms else
+              + (f"{k1_ms:.4f} ms a launch ({k1[1]} launches)" if k1_ms else
                  "not seen by the profiler")
               + f" against {k1_alone['demo_1080p']:.4f} alone")
     for label, app in (("demo", demo[0]), ("demo 4 bands", bands[0])):
-        cf = next(iter(app.draw._plans.values())).compiled
-        print(f"  {label}: capture {cf.capture_seconds:.3f} s, graph pool "
-              f"{cf.pool_bytes / 2**20:.1f} MiB, {cf.k1_launches} K1 "
-              f"launch(es) a replay")
-        out[f"{label} capture"] = (cf.capture_seconds, cf.pool_bytes)
+        out[f"{label} capture"] = capture_line(app, label)
     del demo, bands
     gc.collect()
     torch.cuda.empty_cache()
@@ -1100,8 +1241,26 @@ def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
     out["stress_ms"] = graph_turns({"graph": stress[0], "eager": stress[1]},
                                    BAND_STRESS_FRAMES, 1,
                                    "stress 3840x2160", card)
+    out["stress capture"] = capture_line(stress[0], "stress")
+    # the stress scene on 4 bands of one card: segmented graphs
+    stress4 = graph_against_eager(
+        lambda: StressApp(mesh=make_mesh(devices=[dev] * 4)), 20,
+        "stress 3840x2160 on 4 bands of one card, 20 frames")
+    out["stress_bands4_graph_launches"] = stress4[2]
+    syncs_s4 = syncs_per_frame(stress4[0])
+    print(f"  host syncs a steady-state frame, stress 4 bands graph: "
+          f"{sum(syncs_s4.values())}")
+    if sum(syncs_s4.values()):
+        raise AssertionError("the 4-band stress graph frame syncs the host")
+    out["syncs"]["stress 4 bands graph"] = 0
+    out["stress capture 4 bands"] = capture_line(stress4[0],
+                                                 "stress 4 bands")
+    out["stress_bands4_vs_one"] = mesh_turns(
+        stress[0], stress4[0], BAND_STRESS_FRAMES, "stress 3840x2160", card,
+        "8.272 ms/frame on one device (H100 80GB HBM3, 700 W)")
     for label, app in (("stress graph", stress[0]),
-                       ("stress eager", stress[1])):
+                       ("stress eager", stress[1]),
+                       ("stress 4 bands graph", stress4[0])):
         wall, busy, ops, by_name = profile_frames(
             app, PROFILE_FRAMES, "trace_" + label.replace(" ", "_"))
         k1 = by_name.get(next((k for k in by_name
@@ -1112,14 +1271,12 @@ def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
         print(f"  profiled {label}: {wall:.3f} ms/frame wall, device busy "
               f"{busy:.3f} ms/frame ({100.0 * busy / wall:.1f} %), "
               f"{ops:.0f} device ops/frame; K1 in these frames "
-              + (f"{k1_ms:.4f} ms" if k1_ms else "not seen by the profiler")
-              + f" against {k1_alone['stress_4k']:.4f} alone")
+              + (f"{k1_ms:.4f} ms a launch ({k1[1] // PROFILE_FRAMES} a "
+                 f"frame)" if k1_ms else "not seen by the profiler")
+              + f" against {k1_alone['stress_4k']:.4f} alone (one launch "
+                f"over the whole frame)")
         print_groups(by_name, PROFILE_FRAMES)
-    cf = next(iter(stress[0].draw._plans.values())).compiled
-    print(f"  stress: capture {cf.capture_seconds:.3f} s, graph pool "
-          f"{cf.pool_bytes / 2**20:.1f} MiB; card: {card}")
-    out["stress capture"] = (cf.capture_seconds, cf.pool_bytes)
-    del stress
+    del stress, stress4
     gc.collect()
     torch.cuda.empty_cache()
     # (e) the ladder, then (f) an uncapturable vertex function
@@ -1599,13 +1756,17 @@ def main() -> int:
     del band_frames
     gc.collect()
     torch.cuda.empty_cache()
-    # (b) the 1080p demo on 4 bands of this card against one device
+    # (b) the 1080p demo on 4 bands of this card against one device,
+    # its pre-kernel stage in 4 shards
+    pack_split(lambda: DemoApp(1920, 1080, mesh=make_mesh(devices=[dev] * 4)),
+               "demo 1920x1080 on 4 bands")
     single, single_frames = single_demo_frames()
     banded = banded_demo([dev] * 4, single_frames, "demo 1920x1080 on 4 "
                          "bands of one card")
     # (d) one band a card, where there are several
+    cards = None
     if torch.cuda.device_count() > 1:
-        bands_over_cards(single, single_frames, card)
+        cards = bands_over_cards(single, single_frames, card_lines())
     # (e) ms/frame beside the single-device frame, in turns
     single.renderer.debug_winner = banded.renderer.debug_winner = False
     demo_ms, demo_launches = time_in_turns({1: single, 4: banded},
@@ -1619,7 +1780,13 @@ def main() -> int:
     del single, banded, single_frames
     gc.collect()
     torch.cuda.empty_cache()
-    # (c) the stress scene on 4 and 8 bands against one device
+    # (c) the stress scene on 4 and 8 bands against one device, its
+    # pre-kernel stage in 4 and 8 shards
+    for n in (4, 8):
+        pack_split(lambda: StressApp(mesh=make_mesh(devices=[dev] * n)),
+                   f"stress 3840x2160 on {n} bands")
+    gc.collect()
+    torch.cuda.empty_cache()
     stress_apps = {1: StressApp(device="cuda")}
     stress_apps[1].renderer.debug_winner = True
     stress_apps[1].tick()
@@ -1654,10 +1821,11 @@ def main() -> int:
             for label, total in totals.items():
                 layers[n][label] = min(layers[n].get(label, np.inf),
                                        total / PROFILE_FRAMES)
-    for label in sorted(layers[1], key=lambda k: -layers[1][k]):
+    labels = {label for by_label in layers.values() for label in by_label}
+    for label in sorted(labels, key=lambda k: -layers[4].get(k, 0.0)):
         print(f"  stress 3840x2160 fenced {label} (least of "
               f"{BAND_ROUNDS} rounds): " + ", ".join(
-                  f"{layers[n][label]:.3f}" for n in stress_apps)
+                  f"{layers[n].get(label, 0.0):.3f}" for n in stress_apps)
               + f" ms/frame on {', '.join(map(str, stress_apps))} bands")
     del stress_apps, app, frame1
     gc.collect()
@@ -1680,7 +1848,15 @@ def main() -> int:
                "demo_8k": k8_launches,
                "demo_1080p_bands4": demo_bands_launches,
                "stress_4k_bands4": stress_launches_b[4],
+               # phase 11: 4 bands of one card as segmented graphs
+               "demo_1080p_bands4_graph": graph["demo_bands4_graph_launches"],
+               "stress_4k_bands4_graph":
+                   graph["stress_bands4_graph_launches"],
                "behaviour_scenes": scenes["launches"]}
+    if cards is not None:
+        # phase 10 (d): one band a card, per-card segmented graphs
+        by_path["demo_1080p_cards_graph"] = cards["demo_launches"]
+        by_path["stress_4k_cards_graph"] = cards["stress_launches"]
     print(json.dumps({"kernels": [{
         "name": "K1 raster_tile",
         "route": "cuda",
@@ -1705,6 +1881,8 @@ def main() -> int:
         "demo_bands4_frame_ms": float(np.median(demo_ms[4])),
         "stress_bands4_frame_ms": float(np.median(stress_turn_ms[4])),
         "stress_bands8_frame_ms": float(np.median(stress_turn_ms[8])),
+        # phase 10 (d): one band a card (null with one card)
+        "cards": cards,
         "build_s": rk.K1.build_seconds,
         # phase 11: ms/frame graph against eager (medians in turns),
         # host syncs a steady-state frame, K1 inside the graph

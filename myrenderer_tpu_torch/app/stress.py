@@ -31,7 +31,7 @@ import torch
 
 from .. import math3d
 from ..content import Terrain
-from ..ops.vertex_stage import matvec4
+from ..ops.vertex_stage import matvec4, per_device
 from ..renderer import (Binding, BindingLayout, Core, Draw, Instance,
                         Pipeline, Renderer, Surface, VertexBuffer)
 from ..renderer.pipeline import BUILTIN_TRANSFORM, MANAGED_STORAGE
@@ -45,23 +45,19 @@ def _instanced_marker_pipeline(rend, grid: int, terrain_size: int):
     """``grid * grid`` small markers, one per grid cell, standing on the
     heightmap (storage binding 0); each is placed from
     ``ctx.draw_instance`` alone. Constants are the reference's Python
-    floats rounded once to f32, made on the renderer's device once,
-    here: a frame uploads nothing."""
+    floats rounded once to f32, made once per device
+    (``vertex_stage.per_device``: the renderer's here, another card of a
+    mesh at its first frame there): a later frame uploads nothing."""
     spacing = 0.2 * terrain_size / grid
     f32 = torch.float32
-
-    def const(v):
-        return torch.tensor(v, dtype=f32).to(rend.device)
-
-    c_spacing = const(spacing)
-    c_off = const(0.1 * terrain_size)
-    c_s = const(spacing * 0.3)
-    c_up = const(spacing * 0.3 * 2.0)
-    c_5 = const(5.0)
-    color = const(MARKER_COLOR)
+    consts = per_device(lambda dev: tuple(
+        torch.tensor(v, dtype=f32).to(dev)
+        for v in (spacing, 0.1 * terrain_size, spacing * 0.3,
+                  spacing * 0.3 * 2.0, 5.0, MARKER_COLOR)), rend.device)
 
     def vertex_fn(ctx):
         dev = ctx.world.device
+        c_spacing, c_off, c_s, c_up, c_5, color = consts(dev)
         di = ctx.draw_instance
         gx = (di % grid).to(f32)
         gz = (di // grid).to(f32)

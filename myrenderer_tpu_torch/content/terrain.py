@@ -34,7 +34,7 @@ import torch
 
 from ..ops import raster_common as rc
 from ..ops.raster_common import fma
-from ..ops.vertex_stage import matmul4, matvec4
+from ..ops.vertex_stage import matmul4, matvec4, per_device
 from ..renderer import (Binding, BindingLayout, Instance, Pipeline,
                         SceneNode, VertexBuffer)
 from ..renderer.pipeline import (BUILTIN_TRANSFORM, MANAGED_STORAGE,
@@ -58,18 +58,25 @@ def _offset(size: int, device) -> torch.Tensor:
 
 
 def _make_vertex_fn(size: int, device):
-    """The per-vertex terrain shader. Its constants are made on
-    ``device`` (the renderer's) once, here: a frame uploads nothing."""
-    quad_vals = torch.from_numpy(_QUAD_VALS).to(device)
-    lookup_row = torch.from_numpy(_LOOKUP_ROW).to(device)
-    lookup_col = torch.from_numpy(_LOOKUP_COL).to(device)
-    c02 = torch.tensor(0.2, dtype=torch.float32).to(device)
+    """The per-vertex terrain shader. Its constants are made once per
+    device (``vertex_stage.per_device``): on ``device`` (the renderer's)
+    here, on another card of a mesh at its first frame there. A later
+    frame uploads nothing."""
     max_idx = size * size - 1
-    noff = -_offset(size, device)
+
+    def make(dev):
+        return (torch.from_numpy(_QUAD_VALS).to(dev),
+                torch.from_numpy(_LOOKUP_ROW).to(dev),
+                torch.from_numpy(_LOOKUP_COL).to(dev),
+                torch.tensor(0.2, dtype=torch.float32).to(dev),
+                -_offset(size, dev))
+
+    consts = per_device(make, device)
 
     def vertex_fn(ctx):
         vi = ctx.vertex_index.long()
         dev = ctx.world.device
+        quad_vals, lookup_row, lookup_col, c02, noff = consts(dev)
         vertex_at = vi % 6
         quad_at = vi // 6
         quad_coords = torch.stack([(quad_at // size).float(),
@@ -97,18 +104,21 @@ def _make_vertex_batch_fn(size: int, device):
     heightmap gathers become four shifted views of the flat height array
     (extended with copies of its last element: the robust-buffer-access
     clamp of the reference's out-of-bounds ``quad + size + 1`` lookups).
-    Its constants are made on ``device`` once, here.
+    Its constants are made once per device, as the per-vertex
+    function's are.
 
     Triangles go out in the JAX package's array order: per instance, the
     first triangle of every quad, then the second one. ``ids`` carries
     the submission ranks (2q and 2q+1 for quad q, ``Terrain.zig:126``),
     so winner ids and depth ties are those of submission order."""
     s2 = size * size
-    c02 = torch.tensor(0.2, dtype=torch.float32).to(device)
-    noff = -_offset(size, device)
+    consts = per_device(lambda dev: (
+        torch.tensor(0.2, dtype=torch.float32).to(dev),
+        -_offset(size, dev)), device)
 
     def vertex_batch_fn(ctx):
         dev = ctx.worlds.device
+        c02, noff = consts(dev)
         n_inst = ctx.worlds.shape[0]
         quad = torch.arange(s2, dtype=torch.int32, device=dev)
         qx = (quad // size).float()

@@ -304,6 +304,59 @@ def select_straddlers(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
     return app_clip, app_vary, app_valid, sel, overflow
 
 
+def straddler_candidates(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
+                         valid: torch.Tensor, cap: int, offset: int,
+                         total: int):
+    """One shard's part of :func:`select_straddlers`: the shard holds
+    rows [offset, offset + T) of a batch of ``total`` triangles. Returns
+    (keys i32[cap]: the batch indices of its first ``cap`` straddlers in
+    ascending order, ``total`` past them; their clip rows [cap, 3, 4]
+    and varying rows [cap, 3, C]; its straddler count i64[]), for
+    :func:`merge_straddlers`. Shapes are static; nothing is read
+    back."""
+    T = tri_clip.shape[0]
+    dev = tri_clip.device
+    w = tri_clip[..., 3]
+    straddle = valid & (w > W_EPS).any(-1) & (w <= W_EPS).any(-1)
+    tri_idx = torch.arange(offset, offset + T, dtype=torch.int32, device=dev)
+    keys = torch.sort(torch.where(straddle, tri_idx, total)).values
+    if T < cap:
+        keys = torch.cat([keys, torch.full((cap - T,), total,
+                                           dtype=torch.int32, device=dev)])
+    keys = keys[:cap]
+    if T == 0:
+        return (keys, tri_clip.new_zeros((cap, 3, 4)),
+                tri_vary.new_zeros((cap, 3, tri_vary.shape[-1])),
+                straddle.sum())
+    local = torch.clamp(keys - offset, max=T - 1).long()
+    return keys, tri_clip[local], tri_vary[local], straddle.sum()
+
+
+def merge_straddlers(candidates: list, last_clip: torch.Tensor,
+                     last_vary: torch.Tensor, cap: int, total: int):
+    """:func:`select_straddlers` of a batch of ``total`` triangles from
+    its shards' :func:`straddler_candidates` (in shard order, on one
+    device) and the batch's last triangle (``last_clip`` [1, 3, 4],
+    ``last_vary`` [1, 3, C]: the row select_straddlers' dead slots read).
+    One sort of the candidates' indices keeps the batch's first ``cap``
+    straddlers; the flag is the shards' summed count against ``cap``.
+    Returns select_straddlers' five results, bit for bit."""
+    keys = torch.cat([c[0] for c in candidates])
+    sel, pick = torch.sort(keys)
+    sel, pick = sel[:cap], pick[:cap]
+    live = sel < total
+    dead = ~live[:, None, None]
+    clip = torch.where(dead, last_clip,
+                       torch.cat([c[1] for c in candidates])[pick])
+    vary = torch.where(dead, last_vary,
+                       torch.cat([c[2] for c in candidates])[pick])
+    overflow = torch.stack([c[3] for c in candidates]).sum() > cap
+    sel = torch.clamp(sel, max=max(total - 1, 0))
+    t1c, t1v, t2c, t2v, v1, v2 = _clip_straddlers(clip, vary)
+    return (torch.cat([t1c, t2c]), torch.cat([t1v, t2v]),
+            torch.cat([v1 & live, v2 & live]), sel, overflow)
+
+
 def clip_near_capacity(tris: Triangles, valid: torch.Tensor, cap: int):
     """The oracle's eye-plane clipping stage: the appendee block of
     :func:`select_straddlers` concatenated after the batch. Returns

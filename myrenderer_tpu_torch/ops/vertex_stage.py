@@ -38,6 +38,24 @@ def matvec4(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return matmul4(m, v[..., None])[..., 0]
 
 
+def per_device(make: Callable, device) -> Callable:
+    """``get(dev)``: the constants ``make(dev)`` makes, made once per
+    device, first on ``device`` (the renderer's) here. A vertex function
+    reads them on the device its triangles run on (``ctx.world.device``):
+    on a mesh each card makes its own at its first, eager, frame, so no
+    captured frame uploads and no card reads another's memory."""
+    cache = {}
+
+    def get(dev):
+        c = cache.get(dev)
+        if c is None:
+            c = cache[dev] = make(dev)
+        return c
+
+    get(torch.device(device))
+    return get
+
+
 def level_indices(levels: Sequence[np.ndarray], parents: np.ndarray,
                   device) -> list:
     """The (nodes, their parents) long index pairs of each level, depth

@@ -8,12 +8,26 @@ and a band is bit-identical to the same rows of the frame rendered on
 one device. The frame stays banded (:class:`Banded`) until the host asks
 for it.
 
+The triangles are split over the same axis, as the JAX frame pins its
+pre-kernel stage to ``P("rows")``: :func:`shard_ranges` gives shard k
+the triangles ``[k * ceil(T / rows), ...)`` of a batch, on band k's
+device, and the renderer runs each shard's vertex stage, clip, setup
+and pack there. :func:`all_gather` then assembles the records of every
+raster pass on every band's device, once a frame (the JAX frame's
+collective, one a pass): peer copies between cards (``Tensor.copy_``,
+which orders itself with events on both cards' current streams),
+nothing where the shard already lies on the band's device (a mesh whose
+bands repeat one card gathers by ``torch.cat`` alone). A frame replayed
+as CUDA graphs (``renderer/compiled.py``) gathers the same pieces with
+one copy for each pair of cards.
+
 One Python process drives every device, as the JAX package's
 single-controller mesh does: the bands of a frame may share one card,
 spread over several, or lie on the CPU (the tests). The ``tris`` axis is
-accepted for the JAX package's mesh shapes; it moves no work (after the
-JAX step's all-gather every ``tris`` shard computes the same pixels), so
-band k runs on ``devices[k][0]``.
+accepted for the JAX package's mesh shapes and replicates, as in JAX:
+band k and shard k run on ``devices[k][0]``. :func:`sharded_render_step`
+keeps the JAX step's contract, which does not shard setup: its
+triangles are set up once, on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -79,6 +93,48 @@ def make_mesh(n_devices: Optional[int] = None, rows: Optional[int] = None,
     arr = np.empty(n, dtype=object)
     arr[:] = devices[:n]
     return Mesh(arr.reshape(rows, tris))
+
+
+def shard_ranges(tri_count: int, rows: int) -> list:
+    """[lo, hi) of each of ``rows`` shards of ``tri_count`` triangles:
+    shard k holds ``[k * ceil(T / rows), (k + 1) * ceil(T / rows))``
+    clipped to T, as JAX's ``P("rows")`` splits an axis (with T < rows
+    the last shards are empty)."""
+    chunk = -(-tri_count // rows)
+    return [(min(k * chunk, tri_count), min((k + 1) * chunk, tri_count))
+            for k in range(rows)]
+
+
+def tree_map(fn, tree):
+    """``fn`` over the leaves of nested dicts, lists and tuples (a
+    :class:`Banded` maps its bands)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    if isinstance(tree, Banded):
+        return Banded(fn(b) for b in tree.bands)
+    return fn(tree)
+
+
+def leaves(tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+def all_gather(pieces: list, device) -> dict:
+    """Every device's pieces on ``device``: ``pieces`` holds one dict
+    {key: tree of tensors} per device; the result merges them, each
+    tensor moved to ``device`` (a peer copy from another card, ordered
+    by events on both cards' current streams; no copy where it already
+    lies there). Reads nothing back to the host."""
+    out = {}
+    for part in pieces:
+        for key, tree in part.items():
+            out[key] = tree_map(lambda t: t.to(device, non_blocking=True),
+                                tree)
+    return out
 
 
 class Banded:

@@ -28,35 +28,32 @@ and their device overflow flags give the frame.
 - **Launch counting.** K1's launches recorded in the graph are taken
   back out of ``K1.launches`` at capture (nothing ran) and added at each
   replay.
+- **A mesh frame** (:class:`CompiledMeshFrame`) is one program across
+  cards in JAX; here it is cut at its all-gather into two segments, the
+  shards' pre-kernel stage and the bands' raster stage, and each segment
+  is captured once per distinct card of the mesh, on that card's stream
+  into that card's graph (the two share a pool). A replay launches the
+  first segment on every card, then the gather's peer copies (ordered
+  by events on both cards' streams), then the second segment on every
+  card, all from the host without a sync. A CUDA graph holds one
+  device's work, and PyTorch exposes no capture of a wait on another
+  card's event, so the cross-card edge stays outside the graphs. Over
+  several cards the shards' graph also writes its pieces into one byte
+  buffer, so the gather is one peer copy for each pair of cards (not
+  one for each of some 70 small tensors a card). A mesh whose bands
+  repeat one card runs the same machinery, with no copy.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
 import torch
 
 from ..ops.raster_cuda import K1
-from ..parallel.sharding import Banded
-
-
-def tree_map(fn, tree):
-    """``fn`` over the leaves of nested dicts, lists and tuples (a
-    :class:`Banded` maps its bands)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    if isinstance(tree, Banded):
-        return Banded(fn(b) for b in tree.bands)
-    return fn(tree)
-
-
-def leaves(tree) -> list:
-    out = []
-    tree_map(out.append, tree)
-    return out
+from ..parallel.sharding import all_gather, leaves, tree_map
 
 
 def device_args(args, device: torch.device):
@@ -84,8 +81,63 @@ def _views(flat: torch.Tensor, host: list) -> list:
     return out
 
 
+def _byte_views(buf: torch.Tensor, tree) -> list:
+    """A view of ``buf`` (u8) for each leaf of ``tree``, with the leaf's
+    dtype and shape, at 16-byte aligned offsets in leaf order."""
+    out, at = [], 0
+    for t in leaves(tree):
+        out.append(buf[at:at + t.nbytes].view(t.dtype).view(t.shape))
+        at += -(-t.nbytes // 16) * 16
+    return out
+
+
+def _byte_size(tree) -> int:
+    return sum(-(-t.nbytes // 16) * 16 for t in leaves(tree))
+
+
 def _copy_out(out):
     return tree_map(lambda t: None if t is None else t.clone(), out)
+
+
+class _StaticInputs:
+    """Static buffers of a frame's inputs on one device: ``tree`` is the
+    input tree with every host leaf a view of one flat buffer and every
+    device leaf a buffer of its own (the leaves of a view on a mesh card
+    lie on that card)."""
+
+    def __init__(self, args, device: torch.device):
+        host = [a for a in leaves(args) if isinstance(a, np.ndarray)]
+        self.flat = torch.empty(sum(a.size for a in host),
+                                dtype=torch.float32, device=device)
+        views = iter(_views(self.flat, host))
+
+        def static(a):
+            if isinstance(a, np.ndarray):
+                return next(views)
+            return None if a is None else torch.empty_like(a)
+
+        self.tree = tree_map(static, args)
+        self._sources = [None] * len(leaves(args))
+
+    def load(self, args) -> None:
+        """Copy this frame's inputs into the static buffers: the host
+        leaves as one copy from pinned memory, a device leaf when the
+        tensor is a new one."""
+        host = []
+        for i, (a, s) in enumerate(zip(leaves(args), leaves(self.tree))):
+            if isinstance(a, np.ndarray):
+                host.append(a.reshape(-1))
+            elif a is not None and a is not self._sources[i]:
+                if a.shape != s.shape or a.dtype != s.dtype:
+                    raise ValueError(
+                        f"a frame input changed from {s.dtype}"
+                        f"{list(s.shape)} to {a.dtype}{list(a.shape)} "
+                        "without a new frame plan")
+                s.copy_(a, non_blocking=True)
+                self._sources[i] = a
+        if host:
+            self.flat.copy_(torch.from_numpy(np.concatenate(host))
+                            .pin_memory(), non_blocking=True)
 
 
 class CompiledFrame:
@@ -100,9 +152,7 @@ class CompiledFrame:
         self.k1_launches = 0
         self.capture_seconds = None
         self.pool_bytes = None
-        self._static = None       # the static input tree
-        self._flat = None         # static buffer of the host leaves
-        self._sources = []        # the device leaf last copied to each slot
+        self._inputs = None
         self._out = None
 
     @classmethod
@@ -110,25 +160,15 @@ class CompiledFrame:
         """Warm ``fn(args)`` up eagerly on a side stream, then capture it.
         Returns (the CompiledFrame, the warm-up frame's outputs)."""
         self = cls(device)
-        host = [a for a in leaves(args) if isinstance(a, np.ndarray)]
-        self._flat = torch.empty(sum(a.size for a in host),
-                                 dtype=torch.float32, device=device)
-        views = iter(_views(self._flat, host))
-
-        def static(a):
-            if isinstance(a, np.ndarray):
-                return next(views)
-            return None if a is None else torch.empty_like(a)
-
-        self._static = tree_map(static, args)
-        self._sources = [None] * len(leaves(args))
+        self._inputs = _StaticInputs(args, device)
+        static = self._inputs.tree
         with torch.cuda.device(device):
-            self._load(args)
+            self._inputs.load(args)
             cur = torch.cuda.current_stream()
             side = torch.cuda.Stream()
             side.wait_stream(cur)
             with torch.cuda.stream(side):
-                out = fn(self._static)
+                out = fn(static)
             cur.wait_stream(side)
             for t in leaves(out):
                 if t is not None:
@@ -142,7 +182,7 @@ class CompiledFrame:
             before = K1.launches
             try:
                 with torch.cuda.graph(graph):
-                    self._out = fn(self._static)
+                    self._out = fn(static)
             finally:
                 # nothing was launched while capturing
                 self.k1_launches = K1.launches - before
@@ -152,28 +192,155 @@ class CompiledFrame:
         self.graph = graph
         return self, out
 
-    def _load(self, args) -> None:
-        """Copy this frame's inputs into the static buffers."""
-        host = []
-        for i, (a, s) in enumerate(zip(leaves(args), leaves(self._static))):
-            if isinstance(a, np.ndarray):
-                host.append(a.reshape(-1))
-            elif a is not None and a is not self._sources[i]:
-                if a.shape != s.shape or a.dtype != s.dtype:
-                    raise ValueError(
-                        f"a frame input changed from {s.dtype}"
-                        f"{list(s.shape)} to {a.dtype}{list(a.shape)} "
-                        "without a new frame plan")
-                s.copy_(a, non_blocking=True)
-                self._sources[i] = a
-        if host:
-            self._flat.copy_(torch.from_numpy(np.concatenate(host))
-                             .pin_memory(), non_blocking=True)
-
     def replay(self, args):
         """Run the graph on ``args``; returns copies of its outputs."""
         with torch.cuda.device(self.device):
-            self._load(args)
+            self._inputs.load(args)
             self.graph.replay()
             K1.launches += self.k1_launches
             return _copy_out(self._out)
+
+
+class CompiledMeshFrame:
+    """One mesh frame plan's CUDA graphs at one capacity rung. The frame
+    is three functions of the renderer (``stages``): ``shard_stage(view,
+    device)`` -> {key: piece} (the pre-kernel stage of the shards on a
+    device), ``band_stage(view, pieces, device)`` (every raster pass of
+    the bands on a device, from every shard's pieces on it) and
+    ``outputs([band_stage result per device])`` -> the frame. ``args``
+    holds ``views``, one input tree per distinct device of the mesh
+    (``devices``). ``k1_launches``, ``capture_seconds`` and
+    ``pool_bytes`` are summed over the cards, ``segments`` lists
+    (device, "shards" or "bands", capture seconds, pool bytes) of each
+    graph; ``gather_bytes`` is what the all-gather copies between cards
+    a frame."""
+
+    def __init__(self, devices: list):
+        self.devices = list(devices)
+        self.graphs = []          # per device: [shard graph, band graph]
+        self.k1_launches = 0
+        self.capture_seconds = None
+        self.pool_bytes = None
+        self.gather_bytes = 0
+        self.segments = []
+        self._inputs = None
+        self._pieces = []         # per device: the shard graph's outputs
+        self._copies = []         # (buffer, source) of each peer copy
+        self._out = None
+        self._outputs = None
+
+    @classmethod
+    def capture(cls, stages, args, devices: list):
+        """Warm the frame up eagerly on a side stream of each card, then
+        capture each segment on each card. Returns (the
+        CompiledMeshFrame, the warm-up frame's outputs)."""
+        shard_stage, band_stage, outputs = stages
+        self = cls(devices)
+        self._outputs = outputs
+        views = args["views"]
+        self._inputs = [_StaticInputs(v, d) for v, d in zip(views, devices)]
+        static = [inp.tree for inp in self._inputs]
+        for inp, v in zip(self._inputs, views):
+            inp.load(v)
+        cur = [torch.cuda.current_stream(d) for d in devices]
+        side = [torch.cuda.Stream(d) for d in devices]
+        for s, c in zip(side, cur):
+            s.wait_stream(c)
+        with contextlib.ExitStack() as stack:
+            for s in side:
+                stack.enter_context(torch.cuda.stream(s))
+            pieces = [shard_stage(v, d) for v, d in zip(static, devices)]
+            out = outputs([band_stage(v, all_gather(pieces, d), d)
+                           for v, d in zip(static, devices)])
+        del pieces
+        for s, c in zip(side, cur):
+            c.wait_stream(s)
+        for t in leaves(out):
+            if t is not None:
+                t.record_stream(torch.cuda.current_stream(t.device))
+        t0 = time.perf_counter()
+        for d in devices:
+            torch.cuda.synchronize(d)
+        torch.cuda.empty_cache()
+        reserved = [torch.cuda.memory_reserved(d) for d in devices]
+        before = K1.launches
+        try:
+            for v, d in zip(static, devices):
+                graph, pieces = self._capture(self._shards,
+                                              (shard_stage, v, d), d)
+                self.graphs.append([graph])
+                self._pieces.append(pieces)
+            got = [self._gather_buffers(d) for d in devices]
+            self._out = []
+            for v, g, d, graphs in zip(static, got, devices, self.graphs):
+                graph, out_d = self._capture(band_stage, (v, g, d), d,
+                                             pool=graphs[0].pool())
+                graphs.append(graph)
+                self._out.append(out_d)
+        finally:
+            # nothing was launched while capturing
+            self.k1_launches = K1.launches - before
+            K1.launches = before
+        self.pool_bytes = sum(torch.cuda.memory_reserved(d) - r
+                              for d, r in zip(devices, reserved))
+        self.capture_seconds = time.perf_counter() - t0
+        return self, out
+
+    def _capture(self, fn, args: tuple, device, pool=None):
+        """Capture ``fn(*args)`` into a new graph on ``device``'s own
+        stream, in ``pool`` (the shards' graph's, for the bands' graph).
+        Returns (the graph, its outputs)."""
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        reserved = torch.cuda.memory_reserved(device)
+        with torch.cuda.device(device):
+            with torch.cuda.graph(graph, pool=pool,
+                                  stream=torch.cuda.Stream(device)):
+                out = fn(*args)
+        self.segments.append((device, "shards" if pool is None else "bands",
+                              time.perf_counter() - t0,
+                              torch.cuda.memory_reserved(device) - reserved))
+        return graph, out
+
+    def _shards(self, shard_stage, view, device):
+        """The shards' stage on ``device``: (its pieces, and over several
+        cards one u8 buffer holding them all for the gather)."""
+        pieces = shard_stage(view, device)
+        if len(self.devices) == 1:
+            return pieces, None
+        buf = torch.empty(_byte_size(pieces), dtype=torch.uint8,
+                          device=device)
+        for dst, t in zip(_byte_views(buf, pieces), leaves(pieces)):
+            dst.copy_(t)
+        return pieces, buf
+
+    def _gather_buffers(self, device) -> dict:
+        """Every shard's pieces on ``device``: the shard graph's own
+        outputs where the shard lies there, else views of a byte buffer
+        on ``device`` that each replay's peer copy fills."""
+        out = {}
+        for src, (pieces, buf) in zip(self.devices, self._pieces):
+            if src == device:
+                out.update(pieces)
+                continue
+            dst = torch.empty_like(buf, device=device)
+            self._copies.append((dst, buf))
+            self.gather_bytes += buf.nbytes
+            views = iter(_byte_views(dst, pieces))
+            out.update(tree_map(lambda _t: next(views), pieces))
+        return out
+
+    def replay(self, args):
+        """Run the segments on ``args``; returns copies of the outputs."""
+        for inp, v in zip(self._inputs, args["views"]):
+            inp.load(v)
+        for d, (shard_graph, _band_graph) in zip(self.devices, self.graphs):
+            with torch.cuda.device(d):
+                shard_graph.replay()
+        for buf, src in self._copies:
+            buf.copy_(src, non_blocking=True)
+        for d, (_shard_graph, band_graph) in zip(self.devices, self.graphs):
+            with torch.cuda.device(d):
+                band_graph.replay()
+        K1.launches += self.k1_launches
+        return self._outputs([_copy_out(o) for o in self._out])

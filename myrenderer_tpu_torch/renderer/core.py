@@ -139,10 +139,11 @@ class Renderer:
     device.
 
     ``mesh`` (``parallel.make_mesh``) renders each frame in row bands,
-    one per mesh row on that row's device (the tile backend only); the
-    pre-kernel stage runs on the mesh's first device, which is then the
-    renderer's ``device`` (``device`` must name it), and the framebuffer
-    stays banded (``parallel.Banded``).
+    one per mesh row on that row's device (the tile backend only), with
+    the pre-kernel stage split into as many triangle shards, each on its
+    band's device; the mesh's first device is the renderer's ``device``
+    (``device`` must name it), and the framebuffer stays banded
+    (``parallel.Banded``).
 
     Transform products must stay full fp32 on the card, so TF32 is
     switched off for matmuls and cuDNN when a renderer starts."""

@@ -34,13 +34,21 @@ batch, one raster pass with batch-local ids against the surface's
 running depth, kept only when the pipeline writes depth.
 
 Row bands (``Renderer(mesh=...)``): the frame is cut into equal bands of
-rows, one per mesh row, each on its device. The pre-kernel stage (vertex
-stage, clip, setup, pack) runs once on the mesh's first device; each
-raster pass then sends the records to every band's device and runs
-binning, K1 and shading band by band. A band is bit-identical to the
-same rows of a single-device frame. The framebuffer and
-``last_winners`` stay banded (``parallel.Banded``); a frame with no
-clear loads the previous frame's bands.
+rows, one per mesh row, each on its device, and each batch's triangles
+into as many shards (``parallel.shard_ranges``), shard k on band k's
+device, as the JAX frame pins its pre-kernel stage to ``P("rows")``.
+Each shard runs its vertex stage (a per-vertex function on the shard's
+vertices; a whole-stream function once on each distinct device, each
+shard taking its rows of the result), its eye-plane straddler
+candidates, setup, pack and boxes (:func:`_shard_stage`). One
+all-gather a frame (``parallel.all_gather``) then brings every shard's
+pieces to each band's device, where each pass merges the straddlers
+(``raster_common.merge_straddlers``), sets up the appendee block,
+assembles the table and runs binning, K1 and shading band by band
+(:func:`_band_stage`). A band is bit-identical to the same rows of a
+single-device frame. The framebuffer and ``last_winners`` stay banded
+(``parallel.Banded``); a frame with no clear loads the previous frame's
+bands.
 
 Capacity ladder (the reference's ``draw.py:615-788``): one scale,
 ``Draw.big_scale``, multiplies the clip capacity (``CLIP_CAPACITY`` per
@@ -53,10 +61,14 @@ copy to pinned host memory and is polled, the queue force-drained
 beyond ``OVERFLOW_WINDOW`` frames. At the top of the ladder flags go
 unchecked.
 
-The CUDA graph (``compiled.CompiledFrame``): one per plan and rung, on
-one card (a mesh whose bands all lie on that card included); a mesh
-over several cards and the oracle backend run the same frame eagerly,
-as the CPU does. A vertex or fragment function runs once, at capture,
+The CUDA graph (``compiled.CompiledFrame``): one per plan and rung on
+one card. A mesh frame on cards (``compiled.CompiledMeshFrame``) is cut
+at its all-gather into the shards' and the bands' stage, each captured
+once per distinct card; a replay runs them with the gather's peer
+copies between, without a host sync, on one card or several. The oracle
+backend runs the same frame eagerly, as the CPU does, and so does any
+frame under the private ``Draw._eager_frames``. A vertex or fragment
+function runs once, at capture,
 and is replayed after that: Python-side values it reads are baked in,
 as ``jax.jit`` bakes them into the JAX frame. Published frames are
 copies of the graph's outputs.
@@ -75,8 +87,8 @@ import torch
 from ..ops import raster, raster_ref
 from ..ops import raster_common as rc
 from ..ops import vertex_stage as vs
-from ..parallel.sharding import Banded, split_bands
-from .compiled import CompiledFrame, device_args
+from ..parallel.sharding import Banded, all_gather, shard_ranges, split_bands
+from .compiled import CompiledFrame, CompiledMeshFrame, device_args
 from .pipeline import Pipeline
 
 # eye-plane straddlers clipped per batch at big scale 1 (the demo orbit
@@ -109,7 +121,11 @@ class _BatchPlan:
     binding_locs: tuple             # managed/attachment locations
     rowspec: list                   # per draw: (vb ordinal, first, count)
     use_batch_fn: bool
+    # device -> the index arrays on it (_batch_device_arrays)
     device_arrays: Optional[dict] = None
+    # on a mesh, [lo, hi) of each shard's triangles (shard k on band k's
+    # device)
+    shards: Optional[list] = None
 
 
 @dataclass
@@ -123,9 +139,14 @@ class _FramePlan:
     debug_winner: bool = False
     mesh: Optional[object] = None
     big_scale: int = 1
-    # the scene's levels as device index pairs (vs.level_indices)
-    level_index: Optional[list] = None
-    compiled: Optional[CompiledFrame] = None
+    # the distinct devices the frame runs on: the renderer's, or the
+    # mesh's band devices in band order
+    devices: Optional[list] = None
+    # device -> the scene's levels as index pairs on it (vs.level_indices)
+    level_index: Optional[dict] = None
+    # the frame's CUDA graph(s) on a card: CompiledFrame, or
+    # CompiledMeshFrame on a mesh
+    compiled: Optional[object] = None
 
 
 def _build_levels(nodes):
@@ -241,57 +262,87 @@ def _batch_device_arrays(b: _BatchPlan, device) -> dict:
     }
 
 
+def _stream_rows(b: _BatchPlan, bargs: dict, lo: int, hi: int):
+    """Rows [lo, hi) of the batch's vertex stream (its draws'
+    vertex-buffer rows, concatenated), cut from each draw's rows."""
+    rows, at = [], 0
+    for ordinal, first, count in b.rowspec:
+        a, z = max(lo, at), min(hi, at + count)
+        if a < z:
+            rows.append(bargs["vbs"][ordinal][first + a - at:first + z - at])
+        at += count
+    return torch.cat(rows, 0) if len(rows) > 1 else rows[0]
+
+
+def _fragment_ctx(b: _BatchPlan, bargs: dict):
+    if not b.pipeline.fragment_uses_ctx:
+        return None
+    return vs.FragmentCtx({loc: arrs[0] for loc, arrs
+                           in bargs["bindings"].items()})
+
+
+def _vertex_stage(b: _BatchPlan, bargs: dict, dev: dict, clip_mats, inst_vis,
+                  rng=None):
+    """The vertex stage of batch ``b`` on the device of its index arrays
+    ``dev``: (Triangles, visibility bool[T]). ``rng`` = (lo, hi) runs a
+    per-vertex function over triangles [lo, hi) alone (vertices
+    [3 lo, 3 hi)); a whole-stream function runs over every vertex (it
+    may permute its triangles: the caller cuts the range)."""
+    lo, hi = (0, b.tri_count) if rng is None or b.use_batch_fn else rng
+    whole = (lo, hi) == (0, b.tri_count)
+    v = slice(None) if whole else slice(3 * lo, 3 * hi)
+    attrs = {}
+    if b.attr_offsets:
+        packed = _stream_rows(b, bargs, 3 * lo, 3 * hi)
+        attrs = {name: packed[:, off:off + wdt]
+                 for name, (off, wdt) in b.attr_offsets.items()}
+    bindings = {loc: torch.stack(arrs) if len(arrs) > 1 else arrs[0][None]
+                for loc, arrs in bargs["bindings"].items()}
+    tris = vs.run_vertex_stage(
+        b.pipeline.vertex_fn, dev["vidx"][v], attrs, clip_mats,
+        dev["iids"][v], bindings,
+        vertex_batch_fn=(b.pipeline.vertex_batch_fn
+                         if b.use_batch_fn else None),
+        draw_instances=dev["dinst"][v])
+    if tris.vary.shape[-1] != 4:
+        raise ValueError(
+            f"vertex function "
+            f"{getattr(b.pipeline.vertex_fn, '__name__', '?')!r}"
+            f" emitted {tris.vary.shape[-1]} varying channels; the "
+            "fragment contract is exactly 4 (the reference's "
+            "FragPass vec4, Pipeline.zig:12-32) — pack unused "
+            "channels with zeros")
+    tri_vis = inst_vis[dev["tri_iid"][slice(None) if whole
+                                      else slice(lo, hi)]]
+    if tris.ids is not None:
+        # permuted producers: slot k holds submission rank ids[k]
+        tri_vis = tri_vis[tris.ids.long()]
+    return tris, tri_vis
+
+
+def _surface_visibility(args: dict, world, s_i: int):
+    """Per-node clip matrices and conservative visibility of surface
+    ``s_i``, each node against its OWN box under its own composed
+    transform."""
+    clip_all = vs.matmul4(args["surfaces"][s_i]["persp"][None], world)
+    return clip_all, vs.cull_aabb(clip_all, args["aabb_min"],
+                                  args["aabb_max"], args["finite"])
+
+
 def _batch_vertex_products(plan: _FramePlan, args: dict, world, device):
     """Run every surface's vertex stage; returns
     [(surface index, batch, Triangles, valid bool[T], FragmentCtx|None)]
     in submission order."""
     out = []
     for s_i, batches in enumerate(plan.surfaces):
-        sargs = args["surfaces"][s_i]
-        # per-node clip matrices and conservative visibility, each node
-        # against its OWN box under its own composed transform
-        clip_all = vs.matmul4(sargs["persp"][None], world)
-        vis = vs.cull_aabb(clip_all, args["aabb_min"], args["aabb_max"],
-                           args["finite"])
+        clip_all, vis = _surface_visibility(args, world, s_i)
         for b_i, b in enumerate(batches):
-            bargs = sargs["batches"][b_i]
-            dev = b.device_arrays
-            clip_mats = clip_all[dev["nodes"]]
-            inst_vis = vis[dev["nodes"]]
-            attrs = {}
-            if b.attr_offsets:
-                rows = [bargs["vbs"][ordinal][fv:fv + count]
-                        for ordinal, fv, count in b.rowspec]
-                packed = torch.cat(rows, 0) if len(rows) > 1 else rows[0]
-                attrs = {name: packed[:, off:off + wdt]
-                         for name, (off, wdt) in b.attr_offsets.items()}
-            bindings = {loc: torch.stack(arrs) if len(arrs) > 1
-                        else arrs[0][None]
-                        for loc, arrs in bargs["bindings"].items()}
-            fctx = None
-            if b.pipeline.fragment_uses_ctx:
-                fctx = vs.FragmentCtx({loc: arrs[0] for loc, arrs
-                                       in bargs["bindings"].items()})
-
-            tris = vs.run_vertex_stage(
-                b.pipeline.vertex_fn, dev["vidx"], attrs, clip_mats,
-                dev["iids"], bindings,
-                vertex_batch_fn=(b.pipeline.vertex_batch_fn
-                                 if b.use_batch_fn else None),
-                draw_instances=dev["dinst"])
-            if tris.vary.shape[-1] != 4:
-                raise ValueError(
-                    f"vertex function "
-                    f"{getattr(b.pipeline.vertex_fn, '__name__', '?')!r}"
-                    f" emitted {tris.vary.shape[-1]} varying channels; the "
-                    "fragment contract is exactly 4 (the reference's "
-                    "FragPass vec4, Pipeline.zig:12-32) — pack unused "
-                    "channels with zeros")
-            tri_vis = inst_vis[dev["tri_iid"]]
-            if tris.ids is not None:
-                # permuted producers: slot k holds submission rank ids[k]
-                tri_vis = tri_vis[tris.ids.long()]
-            out.append((s_i, b, tris, tri_vis, fctx))
+            bargs = args["surfaces"][s_i]["batches"][b_i]
+            dev = b.device_arrays[device]
+            tris, tri_vis = _vertex_stage(b, bargs, dev,
+                                          clip_all[dev["nodes"]],
+                                          vis[dev["nodes"]])
+            out.append((s_i, b, tris, tri_vis, _fragment_ctx(b, bargs)))
     return out
 
 
@@ -319,35 +370,54 @@ def _setup_batch(plan: _FramePlan, tris: rc.Triangles, valid, cull_mode,
     return packed, torch.cat([tc.valid, tc_app.valid]), bbox, overflow
 
 
+def _batch_ids(plan: _FramePlan, cap: int) -> list:
+    """(z bias, first id) of each batch in submission order: in the
+    merged pass surface s of S takes the bias 2*(S-1-s) and each batch
+    T + 2*cap global ranks; a sequential pass has no bias and ids from
+    0."""
+    S = len(plan.surfaces)
+    out, base = [], 0
+    for s_i, batches in enumerate(plan.surfaces):
+        for b in batches:
+            if not plan.merged:
+                out.append((None, 0))
+                continue
+            out.append((2.0 * (S - 1 - s_i) if S > 1 else None, base))
+            base += b.tri_count + 2 * cap
+    return out
+
+
 def _band_layout(plan: _FramePlan, device):
     """(y0, device) of each row band: one band on ``device`` without a
     mesh, else one per mesh row."""
     if plan.mesh is None:
         return [(0, device)]
-    devices = plan.mesh.band_devices()
-    band = plan.height // len(devices)
-    return [(k * band, d) for k, d in enumerate(devices)]
+    return [(k * _band_height(plan), d)
+            for k, d in enumerate(plan.mesh.band_devices())]
+
+
+def _band_height(plan: _FramePlan) -> int:
+    return plan.height // (1 if plan.mesh is None else plan.mesh.shape["rows"])
 
 
 def _band_fill(plan: _FramePlan, layout, value):
-    """One [band, W] depth buffer of ``value`` per band."""
-    band = plan.height // len(layout)
-    return [torch.full((band, plan.width), value, dtype=torch.float32,
-                       device=d) for _y0, d in layout]
+    """One [band, W] depth buffer of ``value`` per band of ``layout``."""
+    return [torch.full((_band_height(plan), plan.width), value,
+                       dtype=torch.float32, device=d) for _y0, d in layout]
 
 
 def _band_clear(plan: _FramePlan, layout, color):
-    band = plan.height // len(layout)
+    band = _band_height(plan)
     return [color.to(d, non_blocking=True).expand(band, plan.width, 4)
             .clone() for _y0, d in layout]
 
 
 def _raster_pass(plan: _FramePlan, layout, packed, valid, bbox, depth, fb,
                  ranges, flags):
-    """Binning, K1 and shading of one raster pass over every band
-    (``depth`` and ``fb`` hold one tensor per band); each band's pair
-    overflow flag goes to ``flags["pairs"]``. Returns (depth, fb,
-    winner), one tensor per band each."""
+    """Binning, K1 and shading of one raster pass over every band of
+    ``layout`` (``depth`` and ``fb`` hold one tensor per band); each
+    band's pair overflow flag goes to ``flags["pairs"]``. Returns (depth,
+    fb, winner), one tensor per band each."""
     outs = raster.rasterize_bands(
         packed, valid, bbox, plan.width, plan.height,
         [(y0, d) for (y0, _dev), d in zip(layout, depth)],
@@ -362,22 +432,21 @@ def _raster_pass(plan: _FramePlan, layout, packed, valid, bbox, depth, fb,
 
 
 def _merged_pass(plan: _FramePlan, args: dict, products, layout, fb, cap,
-                 flags):
-    """Every surface in one raster pass. Returns (fb, winner), one tensor
-    per band each (winner None without products)."""
+                 flags, setup):
+    """Every surface in one raster pass. ``products`` holds (surface
+    index, batch, setup input, FragmentCtx|None) per batch, and
+    ``setup(input, batch, z bias, first id)`` gives its (packed, valid,
+    bbox, clip overflow). Returns (fb, winner), one tensor per band each
+    (winner None without products)."""
     if plan.clear_flags and plan.clear_flags[0]:
         fb = _band_clear(plan, layout, args["surfaces"][0]["clear"])
     if not products:
         return fb, None
     S = len(plan.surfaces)
     packs, valids, bboxes, ranges = [], [], [], []
-    base = 0
-    for s_i, b, tris, valid, fctx in products:
-        bias = 2.0 * (S - 1 - s_i) if S > 1 else None
-        packed, v, bbox, ovf = _setup_batch(plan, tris, valid,
-                                            b.pipeline.cull_mode,
-                                            z_bias=bias, base_index=base,
-                                            cap=cap)
+    for (s_i, b, data, fctx), (bias, base) in zip(products,
+                                                   _batch_ids(plan, cap)):
+        packed, v, bbox, ovf = setup(data, b, bias, base)
         flags["clip"].append(ovf)
         packs.append(packed)
         valids.append(v)
@@ -391,7 +460,6 @@ def _merged_pass(plan: _FramePlan, args: dict, products, layout, fb, cap,
             ranges[-1] = (ranges[-1][0], end, fn, None)
         else:
             ranges.append((base, end, fn, fctx))
-        base = end
     packed = torch.cat(packs)
     valid = torch.cat(valids)
     bbox = tuple(torch.cat(cs) for cs in zip(*bboxes))
@@ -402,10 +470,12 @@ def _merged_pass(plan: _FramePlan, args: dict, products, layout, fb, cap,
 
 
 def _sequential_passes(plan: _FramePlan, args: dict, products, layout, fb,
-                       cap, flags):
+                       cap, flags, setup):
     """One raster pass per batch, surface by surface (the reference's
-    ``draw.py:509-547``), every band in each. Returns (fb, [winner per
-    pass]), one tensor per band each."""
+    ``draw.py:509-547``), every band in each; ``products`` and ``setup``
+    as in :func:`_merged_pass` (the oracle takes (Triangles, valid) as a
+    batch's setup input). Returns (fb, [winner per pass]), one tensor per
+    band each."""
     H, W = plan.height, plan.width
     products = iter(products)
     winners = []
@@ -414,18 +484,17 @@ def _sequential_passes(plan: _FramePlan, args: dict, products, layout, fb,
             fb = _band_clear(plan, layout, args["surfaces"][s_i]["clear"])
         depth = _band_fill(plan, layout, 1.0)
         for b in batches:
-            _s, _b, tris, valid, fctx = next(products)
+            _s, _b, data, fctx = next(products)
             fn, cull = b.pipeline.fragment_fn, b.pipeline.cull_mode
             if plan.backend == "tile":
-                packed, v, bbox, ovf = _setup_batch(plan, tris, valid, cull,
-                                                    cap=cap)
+                packed, v, bbox, ovf = setup(data, b, None, 0)
                 depth2, fb, winner = _raster_pass(
                     plan, layout, packed, v, bbox, depth, fb,
                     [(0, packed.shape[0], fn, fctx)], flags)
             else:
                 # the oracle renders whole frames (a mesh needs the tile
                 # backend): one band
-                tris, v, ovf = rc.clip_near_capacity(tris, valid, cap)
+                tris, v, ovf = rc.clip_near_capacity(*data, cap)
                 tc = rc.triangle_setup(tris.clip, tris.vary, v, W, H, cull,
                                        planar=tris.planar, oracle=True)
                 d, w = raster_ref.rasterize_visibility(
@@ -448,34 +517,218 @@ def _any(flags: list, device) -> torch.Tensor:
     return torch.stack(flags).any()
 
 
-def _frame(plan: _FramePlan, args: dict, device):
-    """One frame over device ``args`` (:meth:`Draw._gather_args` with its
-    host leaves on the device). Returns (fb f32[H, W, 4], winners tuple:
-    one winner buffer per raster pass when ``plan.debug_winner``, each a
-    :class:`Banded` on a mesh; overflow bool[2]: the pair capacity's
-    lane and the clip capacity's, OR-ed over batches, passes and
-    bands). Reads nothing back to the host."""
-    world = vs.compose_world_transforms(args["locals"], plan.level_index)
-    products = _batch_vertex_products(plan, args, world, device)
-    cap = CLIP_CAPACITY * plan.big_scale
-    layout = _band_layout(plan, device)
+def _passes(plan: _FramePlan, args: dict, products, layout, cap, setup,
+            device):
+    """Every raster pass of a frame over the bands of ``layout``, on
+    ``device``. Returns (fb, [winner per pass], overflow bool[2]), fb and
+    each winner one tensor per band."""
     fb = args["fb"]           # one tensor a band; None when it clears
     flags = {"pairs": [], "clip": []}
     if plan.merged:
         fb, winner = _merged_pass(plan, args, products, layout, fb, cap,
-                                  flags)
+                                  flags, setup)
         winners = [] if winner is None else [winner]
     else:
         fb, winners = _sequential_passes(plan, args, products, layout, fb,
-                                         cap, flags)
+                                         cap, flags, setup)
     overflow = torch.stack([_any(flags["pairs"], device),
                             _any(flags["clip"], device)])
+    return fb, winners, overflow
 
-    def frame(bands):
-        return bands[0] if plan.mesh is None else Banded(bands)
 
-    return (frame(fb), (tuple(frame(w) for w in winners)
-                        if plan.debug_winner else ()), overflow)
+def _frame(plan: _FramePlan, args: dict, device):
+    """One frame without a mesh over device ``args``
+    (:meth:`Draw._gather_args` with its host leaves on the device).
+    Returns (fb f32[H, W, 4], winners tuple: one winner buffer per raster
+    pass when ``plan.debug_winner``; overflow bool[2]: the pair
+    capacity's lane and the clip capacity's, OR-ed over batches and
+    passes). Reads nothing back to the host."""
+    world = vs.compose_world_transforms(args["locals"],
+                                        plan.level_index[device])
+    products = [(s_i, b, (tris, valid), fctx) for s_i, b, tris, valid, fctx
+                in _batch_vertex_products(plan, args, world, device)]
+    cap = CLIP_CAPACITY * plan.big_scale
+
+    def setup(data, b, bias, base):
+        return _setup_batch(plan, *data, b.pipeline.cull_mode, z_bias=bias,
+                            base_index=base, cap=cap)
+
+    fb, winners, overflow = _passes(plan, args, products,
+                                    _band_layout(plan, device), cap, setup,
+                                    device)
+    return (fb[0], tuple(w[0] for w in winners) if plan.debug_winner
+            else (), overflow)
+
+
+# --------------------------------------------------------------------------
+# the frame on a mesh: the shards' pre-kernel stage, one all-gather a
+# frame, the bands' raster stage
+# --------------------------------------------------------------------------
+
+def _shard_vertex_products(plan: _FramePlan, args: dict, world, device):
+    """The vertex stage of every shard on ``device``: [(surface index,
+    batch, [(shard k, Triangles, valid)])] in submission order. A
+    per-vertex function runs on each shard's vertices; a whole-stream
+    function runs once on the device over the batch's whole stream (it
+    emits a permuted order), and each shard takes its rows of the result
+    with their global ``ids``."""
+    shards = [k for k, d in enumerate(plan.mesh.band_devices())
+              if d == device]
+    out = []
+    for s_i, batches in enumerate(plan.surfaces):
+        clip_all, vis = _surface_visibility(args, world, s_i)
+        for b_i, b in enumerate(batches):
+            bargs = args["surfaces"][s_i]["batches"][b_i]
+            dev = b.device_arrays[device]
+            clip_mats, inst_vis = clip_all[dev["nodes"]], vis[dev["nodes"]]
+            whole = None
+            pieces = []
+            for k in shards:
+                lo, hi = b.shards[k]
+                if b.use_batch_fn:
+                    if whole is None:
+                        whole = _vertex_stage(b, bargs, dev, clip_mats,
+                                              inst_vis)
+                    t, v = whole
+                    tris = rc.Triangles(t.clip[lo:hi], t.vary[lo:hi],
+                                        t.ids[lo:hi], t.planar)
+                    valid = v[lo:hi]
+                elif lo == hi:
+                    z = torch.zeros((0, 3, 4), device=device)
+                    tris = rc.Triangles(z, z)
+                    valid = torch.zeros(0, dtype=torch.bool, device=device)
+                else:
+                    tris, valid = _vertex_stage(b, bargs, dev, clip_mats,
+                                                inst_vis, (lo, hi))
+                pieces.append((k, tris, valid))
+            out.append((s_i, b, pieces))
+    return out
+
+
+def _shard_setup(plan: _FramePlan, b: _BatchPlan, tris: rc.Triangles, valid,
+                 lo: int, bias, base: int, cap: int) -> dict:
+    """A shard's part of :func:`_setup_batch`: its straddler candidates,
+    and the setup, records (ids from ``base``; a permuted producer's
+    ``ids`` are global) and boxes of its triangles; the shard holding the
+    batch's last triangle also gives its row."""
+    W, H = plan.width, plan.height
+    tc = rc.triangle_setup(tris.clip, tris.vary, valid, W, H,
+                           b.pipeline.cull_mode, z_bias=bias,
+                           planar=tris.planar)
+    piece = {
+        "cand": rc.straddler_candidates(tris.clip, tris.vary, valid, cap, lo,
+                                        b.tri_count),
+        "packed": rc.pack_coeffs_full(
+            tc, base=base + (lo if tris.ids is None else 0), ids=tris.ids),
+        "valid": tc.valid,
+        "bbox": raster.viewport_bbox(tris.clip, W, H),
+    }
+    if lo < b.tri_count == lo + tris.clip.shape[0]:
+        piece["last"] = (tris.clip[-1:], tris.vary[-1:])
+    return piece
+
+
+def _shard_stage(plan: _FramePlan, args: dict, device) -> dict:
+    """The pre-kernel stage of a mesh frame on one of its devices: for
+    every batch, the vertex stage, straddler candidates, setup, pack and
+    boxes of each shard on ``device``. Returns {(batch, shard): piece}.
+    Reads nothing back to the host and touches no other device."""
+    world = vs.compose_world_transforms(args["locals"],
+                                        plan.level_index[device])
+    cap = CLIP_CAPACITY * plan.big_scale
+    out = {}
+    products = _shard_vertex_products(plan, args, world, device)
+    for g, ((_s, b, pieces), (bias, base)) in enumerate(
+            zip(products, _batch_ids(plan, cap))):
+        for k, tris, valid in pieces:
+            out[g, k] = _shard_setup(plan, b, tris, valid, b.shards[k][0],
+                                     bias, base, cap)
+    return out
+
+
+def _mesh_setup(plan: _FramePlan, pieces: dict, g: int, b: _BatchPlan,
+                bias, base: int, cap: int):
+    """:func:`_setup_batch`'s result for batch ``g`` from its shards'
+    pieces, all on one device: the straddlers merged
+    (``rc.merge_straddlers``), clipped, set up and packed into the
+    appendee block, after the shards' records in shard order. Bit for
+    bit the table of one device."""
+    W, H = plan.width, plan.height
+    parts = [pieces[g, k] for k in range(len(b.shards))]
+    last = next(p["last"] for p in parts if "last" in p)
+    app_clip, app_vary, app_valid, _sel, overflow = rc.merge_straddlers(
+        [p["cand"] for p in parts], *last, cap, b.tri_count)
+    tc_app = rc.triangle_setup(app_clip, app_vary, app_valid, W, H,
+                               b.pipeline.cull_mode, z_bias=bias)
+    packed = torch.cat([p["packed"] for p in parts]
+                       + [rc.pack_coeffs_full(tc_app,
+                                              base=base + b.tri_count)])
+    valid = torch.cat([p["valid"] for p in parts] + [tc_app.valid])
+    bbox = tuple(torch.cat(c) for c in zip(
+        *[p["bbox"] for p in parts], raster.viewport_bbox(app_clip, W, H)))
+    return packed, valid, bbox, overflow
+
+
+def _band_stage(plan: _FramePlan, args: dict, pieces: dict, device):
+    """The raster stage of a mesh frame on one of its devices: every
+    raster pass over the bands on ``device``, each from the records of
+    every shard (``pieces``, gathered to ``device``). Returns (fb,
+    [winner per pass], overflow bool[2]), fb and each winner one tensor
+    per band on ``device``."""
+    cap = CLIP_CAPACITY * plan.big_scale
+    products = []
+    for s_i, batches in enumerate(plan.surfaces):
+        for b_i, b in enumerate(batches):
+            products.append((s_i, b, len(products), _fragment_ctx(
+                b, args["surfaces"][s_i]["batches"][b_i])))
+
+    def setup(g, b, bias, base):
+        return _mesh_setup(plan, pieces, g, b, bias, base, cap)
+
+    layout = [(y0, d) for y0, d in _band_layout(plan, device) if d == device]
+    return _passes(plan, args, products, layout, cap, setup, device)
+
+
+def _mesh_outputs(plan: _FramePlan, outs: list):
+    """The frame from each device's :func:`_band_stage` result (in
+    ``plan.devices`` order): (fb :class:`Banded`, winners tuple of
+    :class:`Banded` when ``plan.debug_winner``, overflow bool[2] on the
+    first band's device)."""
+    by_dev = dict(zip(plan.devices, outs))
+    seen = dict.fromkeys(plan.devices, 0)
+    order = []
+    for d in plan.mesh.band_devices():
+        order.append((d, seen[d]))
+        seen[d] += 1
+    fb = Banded(by_dev[d][0][i] for d, i in order)
+    winners = ()
+    if plan.debug_winner:
+        winners = tuple(Banded(by_dev[d][1][p][i] for d, i in order)
+                        for p in range(len(outs[0][1])))
+    first = plan.devices[0]
+    overflow = torch.stack([o[2].to(first, non_blocking=True)
+                            for o in outs]).any(0)
+    return fb, winners, overflow
+
+
+def _mesh_stages(plan: _FramePlan):
+    """(shard stage, band stage, outputs) of a mesh frame, as
+    ``compiled.CompiledMeshFrame`` captures them."""
+    return (functools.partial(_shard_stage, plan),
+            functools.partial(_band_stage, plan),
+            functools.partial(_mesh_outputs, plan))
+
+
+def _mesh_frame(plan: _FramePlan, views: list):
+    """One mesh frame, eagerly: ``views`` holds each distinct device's
+    arguments (``plan.devices`` order, host leaves on the device). The
+    shards' stage on every device, the all-gather, the bands' stage on
+    every device; same results as :func:`_frame` on one device, bands
+    and all. Reads nothing back to the host."""
+    pieces = [_shard_stage(plan, v, d) for v, d in zip(views, plan.devices)]
+    return _mesh_outputs(plan, [
+        _band_stage(plan, v, all_gather(pieces, d), d)
+        for v, d in zip(views, plan.devices)])
 
 
 class _QueuedFlag:
@@ -520,7 +773,7 @@ class Draw:
         self._items: list = []
         self._clear: Optional[np.ndarray] = None
         self._plans: dict = {}
-        self._bounds_cache = None
+        self._bounds_cache = {}           # device -> bounds tensors
         self._bounds_cache_key = None
         self._last_end_time = None
         # multiplier of the clip and pair capacities, raised x4 when a
@@ -639,31 +892,44 @@ class Draw:
         return fb
 
     def _capturable(self, plan: _FramePlan) -> bool:
-        """A frame runs as a CUDA graph on a card, its bands (if any) on
-        the renderer's card; the oracle and a mesh over several cards run
-        eagerly."""
+        """A frame on cards runs as CUDA graph replays: one graph on the
+        renderer's card, or the segments of a mesh frame on each of its
+        cards; the oracle runs eagerly, as the CPU does."""
+        return (plan.backend == "tile"
+                and all(d.type == "cuda" for d in plan.devices))
+
+    def _eager(self, plan: _FramePlan, args: dict):
         dev = self.renderer.device
-        return (dev.type == "cuda" and plan.backend == "tile"
-                and (plan.mesh is None
-                     or set(plan.mesh.band_devices()) == {dev}))
+        if plan.mesh is None:
+            return _frame(plan, device_args(args, dev), dev)
+        return _mesh_frame(plan, [device_args(v, d) for v, d
+                                  in zip(args["views"], plan.devices)])
+
+    def _capture(self, plan: _FramePlan, args: dict):
+        """Capture ``plan``'s frame: (its CompiledFrame or
+        CompiledMeshFrame, the warm-up frame's outputs)."""
+        dev = self.renderer.device
+        if plan.mesh is None:
+            return CompiledFrame.capture(
+                functools.partial(_frame, plan, device=dev), args, dev)
+        return CompiledMeshFrame.capture(_mesh_stages(plan), args,
+                                         plan.devices)
 
     def _run(self, plan: _FramePlan, args: dict):
         """(fb, winners, overflow) of one frame: a replay of the plan's
-        CUDA graph, captured (after an eager warm-up, whose frame this
-        returns) at the plan's first frame; an eager frame where no graph
-        is taken."""
-        dev = self.renderer.device
+        CUDA graph(s), captured (after an eager warm-up, whose frame
+        this returns) at the plan's first frame; an eager frame where no
+        graph is taken."""
         if self._eager_frames or not self._capturable(plan):
-            return _frame(plan, device_args(args, dev), dev)
+            return self._eager(plan, args)
         if plan.compiled is None:
-            plan.compiled, out = CompiledFrame.capture(
-                functools.partial(_frame, plan, device=dev), args, dev)
+            plan.compiled, out = self._capture(plan, args)
             return out
         return plan.compiled.replay(args)
 
     def _maybe_warm_next_capacity(self, window) -> None:
         """``Renderer.precompile_capacity_bump``: make the next rung's
-        plan and capture its CUDA graph now, so that an overflow
+        plan and capture its CUDA graph(s) now, so that an overflow
         re-renders against a ready graph. Captured here, at the end of
         ``end`` on the calling thread (see the Renderer option)."""
         rend = self.renderer
@@ -677,10 +943,8 @@ class Draw:
         plan = self._get_plan(window, big_scale=nxt)
         if (plan.compiled is None and not self._eager_frames
                 and self._capturable(plan)):
-            dev = rend.device
-            plan.compiled, _out = CompiledFrame.capture(
-                functools.partial(_frame, plan, device=dev),
-                self._gather_args(plan, window), dev)
+            plan.compiled, _out = self._capture(
+                plan, self._gather_args(plan, window))
 
     def _poll_overflow_queue(self) -> bool:
         """Consume the queued overflow flags that have reached the host,
@@ -745,15 +1009,22 @@ class Draw:
                 raise ValueError(
                     f"window height {window.height} not divisible by "
                     f"mesh rows {mesh.shape['rows']}")
+        devices = ([rend.device] if mesh is None
+                   else list(dict.fromkeys(mesh.band_devices())))
         for batches in surfaces:
             for b in batches:
-                b.device_arrays = _batch_device_arrays(b, rend.device)
+                b.device_arrays = {d: _batch_device_arrays(b, d)
+                                   for d in devices}
+                if mesh is not None:
+                    b.shards = shard_ranges(b.tri_count, mesh.shape["rows"])
         plan = _FramePlan(
             surfaces=surfaces,
             clear_flags=tuple(c is not None for _, c in self._items),
             width=window.width, height=window.height, backend=backend,
             debug_winner=rend.debug_winner, mesh=mesh, big_scale=big_scale,
-            level_index=vs.level_indices(levels, parents, rend.device))
+            devices=devices,
+            level_index={d: vs.level_indices(levels, parents, d)
+                         for d in devices})
         plan.merged = _mergeable(plan)
         # the scene version only grows: a plan of an older one is never
         # used again, and on a card it holds a CUDA graph and its pool
@@ -769,12 +1040,32 @@ class Draw:
         transforms, perspectives, clear colours) and device tensors
         (bounds, cached by version; vertex buffers and bindings, cached
         by their versions; the incoming framebuffer, one tensor a band,
-        None when the first surface clears)."""
+        None when the first surface clears). On a mesh, ``views`` holds
+        these once per distinct device of ``plan.devices``, each with
+        its device tensors on that device (every vertex buffer the
+        frame reads, of which each shard reads its rows) and the bands
+        of that device."""
         rend = self.renderer
-        dev = rend.device
+        if plan.mesh is None:
+            fb = None if plan.clear_flags[0] else [window.framebuffer]
+            return self._device_args(plan, rend.device, fb)
+        bands = [None] * len(plan.devices)
+        if not plan.clear_flags[0]:
+            layout = _band_layout(plan, rend.device)
+            split = split_bands(window.framebuffer, [d for _y0, d in layout])
+            bands = [[f for f, (_y0, b) in zip(split, layout) if b == d]
+                     for d in plan.devices]
+        return {"views": [self._device_args(plan, d, fb)
+                          for d, fb in zip(plan.devices, bands)]}
+
+    def _device_args(self, plan: _FramePlan, dev, fb) -> dict:
+        rend = self.renderer
         nodes = rend.scene_nodes
-        key = (rend.scene_version, rend.bounds_version, dev)
+        key = (rend.scene_version, rend.bounds_version)
         if self._bounds_cache_key != key:
+            self._bounds_cache = {}
+            self._bounds_cache_key = key
+        if dev not in self._bounds_cache:
             aabb_min = np.stack([np.nan_to_num(n.bounding_box_p0,
                                                neginf=-1e30, posinf=1e30)
                                  for n in nodes]).astype(np.float32)
@@ -782,11 +1073,10 @@ class Draw:
                                                neginf=-1e30, posinf=1e30)
                                  for n in nodes]).astype(np.float32)
             finite = np.array([n.has_finite_aabb for n in nodes], bool)
-            self._bounds_cache = (torch.from_numpy(aabb_min).to(dev),
-                                  torch.from_numpy(aabb_max).to(dev),
-                                  torch.from_numpy(finite).to(dev))
-            self._bounds_cache_key = key
-        aabb_min, aabb_max, finite = self._bounds_cache
+            self._bounds_cache[dev] = (torch.from_numpy(aabb_min).to(dev),
+                                       torch.from_numpy(aabb_max).to(dev),
+                                       torch.from_numpy(finite).to(dev))
+        aabb_min, aabb_max, finite = self._bounds_cache[dev]
 
         surfaces = []
         for (surface, clear), sbatches in zip(self._items, plan.surfaces):
@@ -805,11 +1095,6 @@ class Draw:
                 "clear": c.astype(np.float32),
                 "batches": batches,
             })
-        fb = None
-        if not plan.clear_flags[0]:
-            fb = ([window.framebuffer] if plan.mesh is None else
-                  split_bands(window.framebuffer,
-                              [d for _y0, d in _band_layout(plan, dev)]))
         return {
             "fb": fb,
             "locals": np.stack([n.xform for n in nodes]).astype(np.float32),

@@ -61,8 +61,8 @@ class _ManagedStore:
             raise ValueError("binding size must be a multiple of 4 bytes")
         self.host = np.zeros(size_bytes // 4, np.uint32)
         self.version = 0
-        self._device = None
-        self._device_version = -1
+        # device -> (version, tensor): one upload per device a version
+        self._device: dict = {}
 
     def write(self, byte_offset: int, value) -> None:
         if isinstance(value, (bytes, bytearray, memoryview)):
@@ -93,13 +93,13 @@ class _ManagedStore:
 
     def device_array(self, device):
         """The words as an f32 tensor on ``device`` (bit-exact: the
-        upload copies bits, no value conversion)."""
-        if (self._device_version != self.version
-                or self._device.device != device):
-            self._device = torch.from_numpy(
-                self.host.view(np.float32).copy()).to(device)
-            self._device_version = self.version
-        return self._device
+        upload copies bits, no value conversion), cached by version and
+        device (a mesh reads it on each of its cards)."""
+        version, t = self._device.get(device, (-1, None))
+        if version != self.version:
+            t = torch.from_numpy(self.host.view(np.float32).copy()).to(device)
+            self._device[device] = (self.version, t)
+        return t
 
 
 class Instance:

@@ -41,8 +41,8 @@ class VertexBuffer:
         # fails map()).
         self.refcount = 0
         self._staging: Optional[np.ndarray] = None
-        self._device = None
-        self._device_version = -1
+        # device -> (version, tensor): one upload per device a version
+        self._device: dict = {}
         if layout is not None:
             self._staging = np.zeros((self.vertex_count, layout.stride),
                                      np.float32)
@@ -72,14 +72,15 @@ class VertexBuffer:
         buf[first:first + len(data)] = data
 
     def device_array(self, device):
-        """Staging as a tensor on ``device``, cached by version."""
+        """Staging as a tensor on ``device``, cached by version and
+        device (a mesh reads it on each of its cards)."""
         if self._staging is None:
             return None
-        if (self._device_version != self.version
-                or self._device.device != device):
-            self._device = torch.from_numpy(self._staging.copy()).to(device)
-            self._device_version = self.version
-        return self._device
+        version, t = self._device.get(device, (-1, None))
+        if version != self.version:
+            t = torch.from_numpy(self._staging.copy()).to(device)
+            self._device[device] = (self.version, t)
+        return t
 
     def retain(self) -> "VertexBuffer":
         self.refcount += 1
@@ -94,4 +95,4 @@ class VertexBuffer:
 
     def free(self) -> None:
         self._staging = None
-        self._device = None
+        self._device = {}

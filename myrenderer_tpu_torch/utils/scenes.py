@@ -15,7 +15,8 @@ Two kinds of builders:
   script, what changes from one frame to the next (vertex rows, binding
   words, texels, transforms, the clear colour, the window size, the
   vertex buffer an instance draws, the surfaces drawn).
-  ``SCRIPTED[name](device, backend)`` returns a :class:`Scene`;
+  ``SCRIPTED[name](device, backend, mesh=None)`` returns a
+  :class:`Scene` (in the row bands of ``mesh`` when one is given);
   ``scene.step(k)`` applies frame k's changes and renders frame k. On a
   card the frames are CUDA graph replays, so together the scripts
   change every input a replay reloads or a new plan captures.
@@ -55,11 +56,12 @@ def _i32(word: int) -> int:
 # scene helpers (``tests/test_render_e2e.py``'s, through the port's API)
 # --------------------------------------------------------------------------
 
-def make_renderer(w=64, h=64, backend="oracle", device="cuda"):
-    """(renderer, window) of a ``w`` x ``h`` window on ``device``."""
+def make_renderer(w=64, h=64, backend="oracle", device="cuda", mesh=None):
+    """(renderer, window) of a ``w`` x ``h`` window on ``device``, in the
+    row bands of ``mesh`` when one is given."""
     core = Core(fixed_timestep=1.0 / 60.0)
     window = core.create_window(w, h, "test")
-    rend = Renderer(core, device=device, raster_backend=backend)
+    rend = Renderer(core, device=device, raster_backend=backend, mesh=mesh)
     rend.adopt_window(window)
     return rend, window
 
@@ -542,17 +544,18 @@ def global_winners(draw) -> torch.Tensor:
     return out
 
 
-def _scene_renderer(device, backend, w=64, h=64):
-    rend, window = make_renderer(w, h, backend=backend, device=device)
+def _scene_renderer(device, backend, w=64, h=64, mesh=None):
+    rend, window = make_renderer(w, h, backend=backend, device=device,
+                                 mesh=mesh)
     rend.debug_winner = True
     return rend, window
 
 
-def scene_writes(device="cuda", backend="auto") -> Scene:
+def scene_writes(device="cuda", backend="auto", mesh=None) -> Scene:
     """Vertex writes, an animated clear colour and two fragment programs
     in one pass: a flat triangle whose vertex rows are rewritten every
     frame beside the heterogeneous-programs pair."""
-    rend, window = _scene_renderer(device, backend)
+    rend, window = _scene_renderer(device, backend, mesh=mesh)
     pipe, layout = flat_pipeline(rend)
     root = hetero_root(rend)
     moving = triangle_node(rend, pipe, layout,
@@ -573,11 +576,11 @@ def scene_writes(device="cuda", backend="auto") -> Scene:
                  window, script)
 
 
-def scene_u32(device="cuda", backend="auto") -> Scene:
+def scene_u32(device="cuda", backend="auto", mesh=None) -> Scene:
     """u32 binding words rewritten every frame: the f32 scale changes and
     the u32 selector leaves 7 on odd frames (green off), while the node
     moves."""
-    rend, window = _scene_renderer(device, backend)
+    rend, window = _scene_renderer(device, backend, mesh=mesh)
     node = u32_node(rend)
     surf = window_surface(rend, window, node)
     inst = node.get_backing()
@@ -593,11 +596,11 @@ def scene_u32(device="cuda", backend="auto") -> Scene:
 TEX_N = 4
 
 
-def scene_texture_writes(device="cuda", backend="auto") -> Scene:
+def scene_texture_writes(device="cuda", backend="auto", mesh=None) -> Scene:
     """A ctx fragment program over a texture the app rewrites every
     frame (a TEXTURE_VIEW binding written with ``update_buffer``), two
     instances of the pipeline (one batch each), the second node moving."""
-    rend, window = _scene_renderer(device, backend)
+    rend, window = _scene_renderer(device, backend, mesh=mesh)
     pipe = uv_pipeline(rend, tex_shape=(TEX_N, TEX_N, 4))
     size = TEX_N * TEX_N * 4 * 4
     nodes = [textured_quad(rend, None, pipe=pipe, binding=Binding(1, size=size))
@@ -623,11 +626,11 @@ def scene_texture_writes(device="cuda", backend="auto") -> Scene:
     return Scene("ctx fragment program, texture writes", rend, window, script)
 
 
-def scene_buffer_swaps(device="cuda", backend="auto") -> Scene:
+def scene_buffer_swaps(device="cuda", backend="auto", mesh=None) -> Scene:
     """``set_vertex_buffer`` swaps: one instance draws one buffer of one
     triangle or another of two, alternating, and the buffers are
     rewritten (each swap is a new frame plan)."""
-    rend, window = _scene_renderer(device, backend)
+    rend, window = _scene_renderer(device, backend, mesh=mesh)
     pipe, layout = flat_pipeline(rend)
     node = triangle_node(rend, pipe, layout,
                          [(0.1, 0.1), (0.9, 0.1), (0.1, 0.9)])
@@ -657,10 +660,10 @@ def scene_buffer_swaps(device="cuda", backend="auto") -> Scene:
 RESIZES = ((64, 64), (96, 48), (48, 80), (96, 48))
 
 
-def scene_resize(device="cuda", backend="auto") -> Scene:
+def scene_resize(device="cuda", backend="auto", mesh=None) -> Scene:
     """The window resized between frames (``Surface.resize``): a new
     framebuffer and a new frame plan at each new size."""
-    rend, window = _scene_renderer(device, backend)
+    rend, window = _scene_renderer(device, backend, mesh=mesh)
     pipe, layout = flat_pipeline(rend)
     node = triangle_node(rend, pipe, layout,
                          [(0.1, 0.1), (0.9, 0.1), (0.1, 0.9)])
@@ -674,10 +677,10 @@ def scene_resize(device="cuda", backend="auto") -> Scene:
     return Scene("resize", rend, window, script)
 
 
-def scene_surfaces(device="cuda", backend="auto") -> Scene:
+def scene_surfaces(device="cuda", backend="auto", mesh=None) -> Scene:
     """Surfaces that appear and disappear: frame k draws the first
     surface, both, or the second alone (which then clears)."""
-    rend, window = _scene_renderer(device, backend)
+    rend, window = _scene_renderer(device, backend, mesh=mesh)
     pipe, layout = flat_pipeline(rend)
     s1 = window_surface(rend, window, triangle_node(
         rend, pipe, layout, [(0.0, 0.0), (1.0, 0.0), (0.0, 1.0)],
@@ -696,10 +699,10 @@ def scene_surfaces(device="cuda", backend="auto") -> Scene:
     return Scene("surfaces appear and disappear", rend, window, script)
 
 
-def scene_instanced(device="cuda", backend="auto") -> Scene:
+def scene_instanced(device="cuda", backend="auto", mesh=None) -> Scene:
     """An instanced draw (3 draw instances) beside the hierarchy chain,
     the chain's root and the instance's vertex rows changing."""
-    rend, window = _scene_renderer(device, backend, 96, 64)
+    rend, window = _scene_renderer(device, backend, 96, 64, mesh=mesh)
     root = SceneNode.create(rend)
     inst_node = instanced_node(rend)
     chain = hierarchy_root(rend)
@@ -718,10 +721,10 @@ def scene_instanced(device="cuda", backend="auto") -> Scene:
     return Scene("instanced draw and a node chain", rend, window, script)
 
 
-def scene_straddler(device="cuda", backend="auto") -> Scene:
+def scene_straddler(device="cuda", backend="auto", mesh=None) -> Scene:
     """An eye-plane straddler whose vertices are rewritten every frame
     (clipped pieces on every frame) beside an in-front triangle."""
-    rend, window = _scene_renderer(device, backend)
+    rend, window = _scene_renderer(device, backend, mesh=mesh)
     front = np.array([[-0.9, 0.9, 0.2, 1.0], [-0.3, 0.9, 0.2, 1.0],
                       [-0.9, 0.3, 0.2, 1.0]], np.float32)
     node = straddler_node(rend, np.concatenate([STRADDLER_CLIP, front]),
@@ -739,10 +742,10 @@ def scene_straddler(device="cuda", backend="auto") -> Scene:
     return Scene("eye-plane straddler writes", rend, window, script)
 
 
-def scene_sequential(device="cuda", backend="auto") -> Scene:
+def scene_sequential(device="cuda", backend="auto", mesh=None) -> Scene:
     """The sequential path: a depth_write=False pipeline and a later
     surface that clears, with moving nodes (one raster pass a batch)."""
-    rend, window = _scene_renderer(device, backend)
+    rend, window = _scene_renderer(device, backend, mesh=mesh)
     pipe, layout = flat_pipeline(rend)
     nodepth, _ = flat_pipeline(rend, depth_write=False, cull_mode="none")
     root = SceneNode.create(rend)
@@ -765,9 +768,9 @@ def scene_sequential(device="cuda", backend="auto") -> Scene:
     return Scene("sequential passes", rend, window, script)
 
 
-def scene_planar(device="cuda", backend="auto") -> Scene:
+def scene_planar(device="cuda", backend="auto", mesh=None) -> Scene:
     """A whole-stream (planar) vertex function under a moving node."""
-    rend, window = _scene_renderer(device, backend)
+    rend, window = _scene_renderer(device, backend, mesh=mesh)
     node = planar_node(rend, batch=True)
     surf = window_surface(rend, window, node)
 
@@ -778,7 +781,8 @@ def scene_planar(device="cuda", backend="auto") -> Scene:
     return Scene("planar batch vertex function", rend, window, script)
 
 
-# name -> builder(device, backend): the behaviour scenes with scripts
+# name -> scene(device, backend, mesh=None): the behaviour scenes with
+# scripts
 SCRIPTED = {
     "writes": scene_writes,
     "u32": scene_u32,

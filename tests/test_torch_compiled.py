@@ -32,6 +32,7 @@ from myrenderer_tpu_torch.app.stress import StressApp
 from myrenderer_tpu_torch.ops import raster, raster_cuda
 from myrenderer_tpu_torch.ops import raster_common as trc
 from myrenderer_tpu_torch.ops.vertex_stage import matvec4
+from myrenderer_tpu_torch.parallel import make_mesh
 from myrenderer_tpu_torch.renderer import draw as tdraw
 from myrenderer_tpu_torch.utils.trisets import (band_slivers,
                                                 crowded_triangles,
@@ -458,6 +459,26 @@ def test_precompile_capacity_bump_warms_next_plan(tall_frames, monkeypatch):
     assert len(draw._plans) == 2
 
 
+def test_ladder_on_a_mesh(tall_frames, monkeypatch):
+    """The ladder and ``precompile_capacity_bump`` on a 2x2 mesh: each
+    of the 2 bands bins 24 of the TALL scene's 48 pairs against 16
+    starved slots, the first frame bumps to big scale 4 and re-renders
+    before it publishes, the next rung's plan is made ahead, and the
+    published frame equals the unstarved one and the JAX package's."""
+    monkeypatch.setattr(raster, "_FORCE_PAIR_CAPACITY", STARVED)
+    mesh = make_mesh(4, rows=2, tris=2, devices=["cpu"] * 4)
+    rend, surf, _node, draw = ladder_scene(types.SimpleNamespace(
+        pkg=tmr, vertex_fn=torch_vertex_fn,
+        renderer=lambda core: tmr.Renderer(core, device="cpu", mesh=mesh)),
+        TALL)
+    rend.precompile_capacity_bump = True
+    got = ladder_frame(rend, surf, draw)
+    assert draw.big_scale == 4 and not bool(draw.last_overflow.any())
+    assert {plan.big_scale for plan in draw._plans.values()} == {4, 16}
+    assert_frame_equal(got, tall_frames["torch"])
+    assert_frame_equal(got, tall_frames["jax"])
+
+
 def test_bump_drops_lower_rungs_and_queue(monkeypatch):
     """A bump leaves only plans at or above the new scale, drops the
     queued flags and re-arms the synchronous window for 2 more frames."""
@@ -504,12 +525,12 @@ class no_host_reads:
 
 
 def frame_without_host_reads(monkeypatch):
-    """Patch draw._frame so that it runs under :class:`no_host_reads`,
-    K1 excepted: on the CPU its plain version stands in for the kernel,
-    which reads nothing back on the card. Returns the list of frames
-    checked."""
+    """Patch draw._frame and draw._mesh_frame so that they run under
+    :class:`no_host_reads`, K1 excepted: on the CPU its plain version
+    stands in for the kernel, which reads nothing back on the card.
+    Returns the list of frames checked."""
     checked = []
-    orig_frame, orig_k1 = tdraw._frame, raster.rasterize_tiles
+    orig_k1 = raster.rasterize_tiles
 
     def k1(*args, **kw):
         reads.__exit__()
@@ -518,27 +539,36 @@ def frame_without_host_reads(monkeypatch):
         finally:
             reads.__enter__()
 
-    def frame(*args, **kw):
-        with reads:
-            out = orig_frame(*args, **kw)
-        checked.append(out)
-        return out
+    def guarded(orig):
+        def frame(*args, **kw):
+            with reads:
+                out = orig(*args, **kw)
+            checked.append(out)
+            return out
+        return frame
 
     reads = no_host_reads()
-    monkeypatch.setattr(tdraw, "_frame", frame)
+    monkeypatch.setattr(tdraw, "_frame", guarded(tdraw._frame))
+    monkeypatch.setattr(tdraw, "_mesh_frame", guarded(tdraw._mesh_frame))
     monkeypatch.setattr(raster, "rasterize_tiles", k1)
     return checked
 
 
-@pytest.mark.parametrize("scene", ["demo", "stress", "sequential"])
+@pytest.mark.parametrize("scene", ["demo", "stress", "sequential",
+                                   "demo on a mesh"])
 def test_frame_reads_nothing_back(scene, monkeypatch):
     """After the synchronous window, a frame does no host read: the
     demo (merged pass, whole-stream terrain, vmapped polygons), the
-    stress scene (vmapped instanced markers) and a sequential frame."""
+    stress scene (vmapped instanced markers), a sequential frame, and
+    the demo sharded over a 4x2 mesh (the shards' stage, the all-gather
+    and the bands' stage)."""
     if scene == "demo":
         app = DemoApp(64, 48, device="cpu")
     elif scene == "stress":
         app = StressApp(64, 64, terrain_size=16, instances=16, device="cpu")
+    elif scene == "demo on a mesh":
+        app = DemoApp(64, 48, device="cpu", mesh=make_mesh(
+            8, rows=4, tris=2, devices=["cpu"] * 8))
     else:
         rend, surf, node, draw = ladder_scene(TORCH)
         node.get_backing().pipeline.depth_write = False

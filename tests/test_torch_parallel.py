@@ -2,10 +2,14 @@
 multi-chip sharding on the CPU (the counterpart of test_parallel.py).
 
 The JAX side runs on its 8 virtual CPU devices (conftest.py); the port's
-mesh holds 8 CPU devices. Bands must give the JAX package's winners
-exactly, its framebuffers by the goldens rule, and the port's own
-single-device frames bit for bit. The last test holds K1 against its
-plain version at a band offset on the card (marked ``cuda``)."""
+mesh holds 8 CPU devices, or fewer for the other mesh shapes. Bands
+must give the JAX package's winners exactly, its framebuffers by the
+goldens rule, and the port's own single-device frames bit for bit. A
+mesh frame shards the pre-kernel stage over the mesh's rows and gathers
+the records to every band: its pack is checked to split, its straddler
+merge against ``select_straddlers``. The tests marked ``cuda`` hold K1
+against its plain version at a band offset and the mesh frame's
+segmented CUDA graphs against its eager frame on the card."""
 
 import functools
 import types
@@ -27,7 +31,11 @@ from myrenderer_tpu_torch.ops import raster, raster_cuda
 from myrenderer_tpu_torch.ops import raster_common as trc
 from myrenderer_tpu_torch.parallel import (Banded, Mesh, make_mesh,
                                            sharded_render_step)
+from myrenderer_tpu_torch.parallel.sharding import shard_ranges
+from myrenderer_tpu_torch.renderer import draw as tdraw
 from myrenderer_tpu_torch.utils.trisets import band_slivers
+from myrenderer_tpu_torch.utils.trisets import \
+    random_triangles as tri_random
 from test_raster_pallas import CFG, random_triangles
 from test_torch_raster_common import assert_bits_equal, jax_setup_batch
 from test_torch_sampling import render_quad
@@ -404,8 +412,284 @@ def test_k1_band_matches_plain_version_on_card(set_name, cuda_device):
     assert torch.equal(fused.view(torch.int32), rfused.view(torch.int32))
 
 
-def test_pre_kernel_stage_actually_partitions():
-    """``tests/test_parallel.py``'s case of the same name: the vertex
-    stage, setup and pack split over the mesh's devices. The port runs
-    the pre-kernel stage once, on the mesh's first device."""
-    pytest.skip("queue 1 item 4")
+def test_pre_kernel_stage_actually_partitions(monkeypatch):
+    """``tests/test_parallel.py``'s case of the same name: on a mesh of 8
+    rows the 64x64 demo's terrain batch (20,000 triangles) is packed in 8
+    pieces of about T / 8 rows (within 64, as the JAX test allows), piece
+    k on band k's device, no pack holds the whole batch, and every
+    band's raster pass receives the full gathered table (T + 2 * 128
+    clip slots a batch)."""
+    packs, passes = [], []
+    orig_pack, orig_bands = trc.pack_coeffs_full, raster.rasterize_bands
+
+    def pack(tc, *args, **kw):
+        out = orig_pack(tc, *args, **kw)
+        packs.append((out.shape[0], out.device))
+        return out
+
+    def bands(packed, valid, bbox, width, vp_height, band_list, **kw):
+        passes.append((packed.shape[0], [d.device for _y0, d in band_list]))
+        return orig_bands(packed, valid, bbox, width, vp_height, band_list,
+                          **kw)
+
+    monkeypatch.setattr(trc, "pack_coeffs_full", pack)
+    monkeypatch.setattr(raster, "rasterize_bands", bands)
+    mesh = cpu_mesh(8)
+    app = DemoApp(64, 64, device="cpu", mesh=mesh)
+    app.tick()
+    t_main = 20000
+    part = [(n, d) for n, d in packs if abs(n - t_main // 8) <= 64]
+    assert len(part) == 8, packs
+    assert [d for _n, d in part] == mesh.band_devices()
+    assert not any(n >= t_main for n, _d in packs)
+    plan = next(iter(app.draw._plans.values()))
+    table = sum(b.tri_count + 2 * tdraw.CLIP_CAPACITY
+                for batches in plan.surfaces for b in batches)
+    assert table == 20519
+    assert passes and all(n == table for n, _d in passes)
+    assert sum(len(d) for _n, d in passes) == 8
+
+
+@pytest.mark.parametrize("tri_count,rows", [(20000, 8), (7, 8), (5, 3),
+                                            (0, 4), (9, 3)])
+def test_shard_ranges(tri_count, rows):
+    """Shard k holds [k * ceil(T / rows), ...) clipped to T: contiguous,
+    covering every triangle once, empty shards last when T < rows."""
+    ranges = shard_ranges(tri_count, rows)
+    chunk = -(-tri_count // rows)
+    assert len(ranges) == rows
+    assert ranges[0][0] == 0 and ranges[-1][1] == tri_count
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(hi - lo == min(chunk, max(tri_count - lo, 0))
+               for lo, hi in ranges)
+
+
+# (T, seed, cap, rows, kind): kind "spread" holds more straddlers than
+# cap in all while each shard holds fewer than cap, so only the merged
+# count can set the flag
+MERGE_CASES = [(200, 1, 128, 8, None), (200, 1, 16, 8, None),
+               (64, 3, 12, 8, "spread"), (300, 4, 1, 3, None),
+               (5, 0, 4, 8, "T < rows"), (7, 2, 128, 8, "T < rows"),
+               (40, 5, 3, 4, None)]
+
+
+@pytest.mark.parametrize("n,seed,cap,rows,kind", MERGE_CASES)
+def test_straddler_merge_equals_select_straddlers(n, seed, cap, rows, kind):
+    """``merge_straddlers`` over the shards' ``straddler_candidates``
+    gives ``select_straddlers``' appendee block, selection and flag bit
+    for bit, below and above the capacity."""
+    clip, vary = tri_random(n, seed, w_range=(-1.0, 3.0))
+    valid = np.random.default_rng(seed + 10).uniform(size=n) < 0.85
+    clip, vary, valid = (torch.from_numpy(np.ascontiguousarray(a))
+                         for a in (clip, vary, valid))
+    want = trc.select_straddlers(clip, vary, valid, cap)
+    cands = [trc.straddler_candidates(clip[lo:hi], vary[lo:hi],
+                                      valid[lo:hi], cap, lo, n)
+             for lo, hi in shard_ranges(n, rows)]
+    got = trc.merge_straddlers(cands, clip[-1:], vary[-1:], cap, n)
+    for a, b in zip(want, got):
+        assert_bits_equal(a, b)
+    counts = [int(c[3]) for c in cands]
+    assert bool(got[4]) == (sum(counts) > cap)
+    if kind == "spread":
+        assert max(counts) < cap < sum(counts) and bool(got[4])
+    if kind == "T < rows":
+        assert n < rows and any(lo == hi for lo, hi in shard_ranges(n, rows))
+        assert sum(counts) > 0
+
+
+# mesh shapes beside test_banded_demo_*'s 8x1, at 64x48 (48 rows divide
+# by 8, 4, 2 and 3)
+MESH_SHAPES = {"4x2": (4, 2), "2x4": (2, 4), "3x1": (3, 1)}
+ALL_SHAPES = {"8x1": (8, 1), **MESH_SHAPES}
+
+
+@pytest.fixture(scope="module", params=list(MESH_SHAPES))
+def mesh_demo_frames(request):
+    """Frames 1 and 2 of the 64x48 demo on a mesh shape: the port
+    sharded, the port on one device and the JAX package on the same
+    mesh shape. Per app: [(framebuffer, winners)] per frame."""
+    rows, tris = MESH_SHAPES[request.param]
+    apps = {"sharded": DemoApp(64, 48, device="cpu",
+                               mesh=cpu_mesh(rows, tris)),
+            "single": DemoApp(64, 48, device="cpu"),
+            "jax": JaxDemoApp(width=64, height=48, backend="pallas",
+                              mesh=jax_make_mesh(rows * tris, rows=rows,
+                                                 tris=tris))}
+    out = {k: [] for k in apps}
+    for _ in range(2):
+        for name, app in apps.items():
+            app.renderer.debug_winner = True
+            fb = app.tick()
+            out[name].append((fb, app.draw.last_winners))
+    return out
+
+
+@pytest.mark.parametrize("frame", [1, 2])
+def test_sharded_demo_equals_one_device_and_jax(frame, mesh_demo_frames):
+    """The sharded demo on 4x2, 2x4 and 3x1 meshes: framebuffer and
+    winners bit-equal to one device's, winners equal to the JAX mesh
+    frame's."""
+    fb_s, win_s = mesh_demo_frames["sharded"][frame - 1]
+    fb_1, win_1 = mesh_demo_frames["single"][frame - 1]
+    fb_j, win_j = mesh_demo_frames["jax"][frame - 1]
+    assert isinstance(fb_s, Banded) and len(win_s) == len(win_1) == 1
+    assert_bits_equal(np.asarray(fb_s), fb_1)
+    assert_bits_equal(np.asarray(win_s[0]), win_1[0])
+    np.testing.assert_array_equal(np.asarray(win_j[0]),
+                                  np.asarray(win_s[0]))
+    assert int((np.asarray(win_s[0]) >= 0).sum()) > 0
+
+
+@pytest.fixture(scope="module")
+def stress_one_device():
+    """Frames 1 and 2 of the small stress scene (64x48, terrain 16, 16
+    markers) on one device, and the JAX package's frames 1 and 2."""
+    from myrenderer_tpu.app import stress as jstress
+    from myrenderer_tpu_torch.app.stress import StressApp
+    out = {}
+    for name, app in (("single", StressApp(64, 48, 16, 16, device="cpu")),
+                      ("jax", jstress.StressApp(width=64, height=48,
+                                                terrain_size=16,
+                                                instances=16,
+                                                backend="pallas"))):
+        app.renderer.debug_winner = True
+        out[name] = [(np.asarray(app.tick()),
+                      np.asarray(app.draw.last_winners[0]))
+                     for _ in range(2)]
+    return out
+
+
+@pytest.mark.parametrize("shape", list(ALL_SHAPES))
+def test_sharded_stress_equals_one_device(shape, stress_one_device):
+    """The small stress scene (a whole-stream terrain and vmapped
+    instanced markers, cull_mode none) sharded: frames 1 and 2 bit-equal
+    to one device's, winners equal to the JAX package's."""
+    from myrenderer_tpu_torch.app.stress import StressApp
+    app = StressApp(64, 48, 16, 16, device="cpu",
+                    mesh=cpu_mesh(*ALL_SHAPES[shape]))
+    app.renderer.debug_winner = True
+    for (fb_1, win_1), (_fb_j, win_j) in zip(stress_one_device["single"],
+                                             stress_one_device["jax"]):
+        fb = app.tick()
+        win = np.asarray(app.draw.last_winners[0])
+        assert_bits_equal(fb_1, np.asarray(fb))
+        assert_bits_equal(win_1, win)
+        np.testing.assert_array_equal(win_j, win)
+    assert int((win >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("shape", ["4x2", "2x4"])
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_sharded_sequential_path_equals_single_device(scene, shape):
+    """The sequential scenes on meshes with a ``tris`` axis (rows 3 and
+    8 are test_banded_sequential_path_equals_single_device's): every
+    pass's winners and the framebuffer bit-equal to one device's."""
+    bfb, bwin, _ = render(torch_api(cpu_mesh(*MESH_SHAPES[shape])), "auto",
+                          SCENES[scene])
+    tfb, twin, _ = render(TORCH, "auto", SCENES[scene])
+    assert len(bwin) == len(twin) > 1
+    assert_bits_equal(tfb, bfb)
+    for a, b in zip(twin, bwin):
+        assert_bits_equal(a, b)
+
+
+@pytest.mark.parametrize("shape", list(MESH_SHAPES))
+def test_sharded_textured_quad_equals_single_device(shape):
+    """A ctx-consuming fragment program (texture sampling) on the other
+    mesh shapes, 48x48: bit-equal to one device."""
+    fb_s, win_s = render_quad(torch_api(cpu_mesh(*MESH_SHAPES[shape])),
+                              "auto", 48)
+    fb_1, win_1 = render_quad(TORCH, "auto", 48)
+    assert_bits_equal(fb_1, fb_s)
+    assert_bits_equal(win_1, win_s)
+    assert int((np.asarray(win_s) >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("shape", ["8x1", "4x2", "2x4"])
+def test_sharded_straddler_scene_equals_single_device(shape):
+    """``utils/scenes.py``'s eye-plane straddler scene (clipped pieces in
+    every frame, vertex rows rewritten between frames) on each mesh
+    shape whose rows divide its 64 rows: 4 frames, framebuffer and
+    winners bit-equal to one device."""
+    from myrenderer_tpu_torch.utils.scenes import SCRIPTED
+    sharded = SCRIPTED["straddler"]("cpu", "auto",
+                                    mesh=cpu_mesh(*ALL_SHAPES[shape]))
+    single = SCRIPTED["straddler"]("cpu", "auto")
+    for k in range(4):
+        fb_s, fb_1 = sharded.step(k), single.step(k)
+        assert isinstance(fb_s, Banded)
+        assert_bits_equal(np.asarray(fb_1), np.asarray(fb_s))
+        for a, b in zip(single.draw.last_winners, sharded.draw.last_winners):
+            assert_bits_equal(np.asarray(a), np.asarray(b))
+        assert int((np.asarray(sharded.draw.last_winners[0]) >= 0)
+                   .sum()) > 0
+
+
+def test_mesh_over_two_devices_equals_single_device():
+    """A mesh whose 4 bands alternate between two devices (``cpu:0`` and
+    ``cpu:1``: two entries of the plan's devices, each with its own
+    views, shards and bands, on the one CPU): frames 1 and 2 of the demo
+    bit-equal to one device's, bands assembled in band order."""
+    two = [torch.device("cpu", 0), torch.device("cpu", 1)]
+    mesh = make_mesh(devices=two * 2)
+    sharded = DemoApp(64, 48, device="cpu:0", mesh=mesh)
+    single = DemoApp(64, 48, device="cpu")
+    for app in (sharded, single):
+        app.renderer.debug_winner = True
+    for _ in range(2):
+        fb_s, fb_1 = sharded.tick(), single.tick()
+        assert_bits_equal(fb_1, np.asarray(fb_s))
+        assert_bits_equal(single.draw.last_winners[0],
+                          np.asarray(sharded.draw.last_winners[0]))
+    plan = next(iter(sharded.draw._plans.values()))
+    assert plan.devices == two
+
+
+def mesh_graph_against_eager(devices, frames: int):
+    """The 96x64 demo on a mesh of ``devices`` as segmented graph
+    replays and eagerly: framebuffers and winners bit-equal after every
+    frame, K1 launched once a band a frame."""
+    mesh = make_mesh(devices=devices)
+    graph, eager = (DemoApp(96, 64, mesh=mesh) for _ in range(2))
+    eager.draw._eager_frames = True
+    for app in (graph, eager):
+        app.renderer.debug_winner = True
+    for _ in range(frames):
+        before = raster_cuda.K1.launches
+        graph.tick()
+        assert raster_cuda.K1.launches == before + len(devices)
+        eager.tick()
+        for a, b in ((graph.window.framebuffer, eager.window.framebuffer),
+                     (graph.draw.last_winners[0], eager.draw.last_winners[0])):
+            assert torch.equal(a.cpu().view(torch.int32),
+                               b.cpu().view(torch.int32))
+    plan = next(iter(graph.draw._plans.values()))
+    assert plan.compiled is not None
+    assert plan.compiled.k1_launches == len(devices)
+    assert [len(g) for g in plan.compiled.graphs] == [2] * len(
+        set(devices))
+    return plan.compiled
+
+
+@pytest.mark.cuda
+def test_mesh_graph_replay_equals_eager_on_card(cuda_device):
+    """Four bands of one card as segmented CUDA graph replays (the
+    shards' graph and the bands' graph), bit-equal to eager frames."""
+    compiled = mesh_graph_against_eager([cuda_device] * 4, 6)
+    assert compiled.gather_bytes == 0
+
+
+@pytest.mark.cuda
+def test_mesh_graph_replay_equals_eager_on_every_card(cuda_device):
+    """One band a card on every card (as many as divide 64 rows):
+    per-card segmented graph replays bit-equal to eager frames, the
+    shards' records copied between cards."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA cards")
+    while 64 % n:
+        n -= 1
+    compiled = mesh_graph_against_eager(
+        [torch.device("cuda", i) for i in range(n)], 6)
+    assert compiled.gather_bytes > 0

@@ -169,7 +169,8 @@ def demo_batches():
     plan = draw._get_plan(app.window)
     args = device_args(draw._gather_args(plan, app.window),
                        torch.device("cpu"))
-    world = tvs.compose_world_transforms(args["locals"], plan.level_index)
+    world = tvs.compose_world_transforms(args["locals"],
+                                         plan.level_index[torch.device("cpu")])
     return tdraw._batch_vertex_products(plan, args, world,
                                         torch.device("cpu"))
 
