@@ -6,7 +6,8 @@ Drives myrenderer_tpu_torch through its entry points and exits non-zero
 at the first failed phase:
 
 1. environment: torch version, card name and power limit;
-2. build: K1 (csrc/raster_tile.cu) with nvcc, timed;
+2. build: K1 (csrc/raster_tile.cu) and K2 (csrc/setup_pack.cu), one
+   nvcc each, started together, timed;
 3. K1 against its plain PyTorch version on the card: random triangle
    sets (with duplicated triangles for depth ties), a crowded tile (1,200
    small triangles and 400 duplicates in one tile: 13 chunks of K1's
@@ -91,7 +92,17 @@ at the first failed phase:
 13. the benchmark's smoke rows: ``bench_torch.main(["--smoke"])`` in
    this process (the demo at 256x256 through its checks, timed loops and
    traced run), its row non-null and correct;
-14. a JSON line of the kernels, the card line, and the last line
+14. K2 (clip + setup + pack, ``ops/setup_pack.py``) against its plain
+   PyTorch version on the card, bit for bit in every lane of the
+   records, the valid flags and the boxes (NaN against NaN): random
+   batches (``trisets.setup_batch``) over every cull mode, layout, z bias
+   and ids, from row 37 of a larger table, half of them read through
+   strided views; every K2 call of the 1080p demo's and the 4K stress
+   scene's frame 1 (each batch and its appendee block); K2 alone over a
+   frame's calls at those shapes, back to back and with the L2 flushed,
+   beside its plain version and its bound; its launches on every path
+   (counted from 0 around each path as K1's are, and required);
+15. a JSON line of the kernels, the card line, and the last line
    {"ok": true, "device": {...}}.
 
 K1's bound at a shape is the larger of its bytes over 3.35 TB/s (what
@@ -103,7 +114,11 @@ and its operations over 67 TFLOP/s (21 fp32 operations for each
 leaves). K1 is timed back to back (its inputs may stay in the 50 MB L2
 where they fit), queued behind a spin on the card so that the host's
 launch rate does not count, and call by call with the L2 flushed before
-each call.
+each call. K2's bound is the larger of its bytes over 3.35 TB/s (each
+triangle's clip positions and varyings, 96 bytes, its valid flag and id
+in; its 128-byte record, 16-byte box and flag out) and its
+K2_OPS_PER_TRI fp32 operations a triangle over 67 TFLOP/s; it is timed
+like K1, a frame's launches at a time.
 
 Imports no JAX. Needs one CUDA card; fails without one.
 """
@@ -111,6 +126,7 @@ Imports no JAX. Needs one CUDA card; fails without one.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import gc
 import io
@@ -138,6 +154,12 @@ BAND_FRAMES = 10          # demo frames a turn, banded and on one device
 BAND_STRESS_FRAMES = 5    # stress frames a turn, banded and on one device
 BAND_ROUNDS = 3           # turns of each
 SPIN_HZ = 2.0e9           # cycles a second of torch.cuda._sleep (at most)
+# fp32 operations of one triangle in K2: pixel coordinates 24, edges 27
+# (an FMA counts two), det 5, the cull sign 9, the z bias 6, 18 plane
+# columns of 5, the den plane 6, the id 1, the box 24, comparisons 15
+K2_OPS_PER_TRI = 207
+# K2's launches by path, each counted from 0 around the path's run
+K2_BY_PATH = collections.Counter()
 
 
 def phase(name: str):
@@ -155,6 +177,23 @@ def card_lines() -> list:
 
 def card_line() -> str:
     return card_lines()[0]
+
+
+@contextlib.contextmanager
+def k2_path(path: str):
+    """Count K2's launches while the block drives ``path``: its count set
+    to 0 just before, read just after, added to ``K2_BY_PATH[path]``."""
+    from myrenderer_tpu_torch.ops.setup_pack import K2
+    K2.launches = 0
+    yield
+    K2_BY_PATH[path] += K2.launches
+
+
+def batches(app) -> int:
+    """Batches of ``app``'s frame plan (K2 launches twice for each on one
+    device: its triangles, its appendee block)."""
+    plan = next(iter(app.draw._plans.values()))
+    return sum(len(b) for b in plan.surfaces)
 
 
 def bin_random(n, seed, H, W, dup, dev, box=None, reverse=False):
@@ -299,18 +338,22 @@ def time_frames(app, n: int) -> float:
     return (time.perf_counter() - t0) * 1000.0 / n
 
 
-def time_in_turns(apps: dict, n: int, rounds: int = BAND_ROUNDS):
+def time_in_turns(apps: dict, n: int, rounds: int = BAND_ROUNDS,
+                  path=None):
     """ms/frame of each app in ``apps`` {bands: app}: ``n`` fenced frames
     an app, the apps taking turns for ``rounds`` rounds. Returns each
     app's rounds and the K1 launches each made (counted from 0 just
-    before each of its turns)."""
+    before each of its turns); with ``path``, K2's go to
+    ``K2_BY_PATH[f"{path}_bands{bands}"]``."""
     from myrenderer_tpu_torch.ops import raster_cuda as rk
     ms = {k: [] for k in apps}
     launches = dict.fromkeys(apps, 0)
     for _ in range(rounds):
         for k, app in apps.items():
             rk.K1.launches = 0
-            ms[k].append(time_frames(app, n))
+            with (k2_path(f"{path}_bands{k}") if path
+                  else contextlib.nullcontext()):
+                ms[k].append(time_frames(app, n))
             launches[k] += rk.K1.launches
     for k, count in launches.items():
         if count != k * n * rounds:
@@ -586,23 +629,13 @@ def pack_split(make_app, label: str):
     [k * ceil(T / rows), ...)), plus its appendee block of 2 * 128 clip
     slots once a distinct device, and no piece holds a whole batch of
     more than one shard's triangles. Prints each batch's pieces."""
-    from myrenderer_tpu_torch.ops import raster_common as rc
     from myrenderer_tpu_torch.renderer.draw import CLIP_CAPACITY
     app = make_app()
     app.draw._eager_frames = True
-    sizes = []
-    orig = rc.pack_coeffs_full
-
-    def pack(tc, *args, **kw):
-        out = orig(tc, *args, **kw)
-        sizes.append(out.shape[0])
-        return out
-
-    rc.pack_coeffs_full = pack
-    try:
+    calls = []
+    with capture_setup_calls(calls):
         app.tick()
-    finally:
-        rc.pack_coeffs_full = orig
+    sizes = [c["tri_clip"].shape[0] for c in calls]
     plan = next(iter(app.draw._plans.values()))
     batches = [b for batches in plan.surfaces for b in batches]
     want = collections.Counter()
@@ -736,10 +769,11 @@ def bands_over_cards(single, single_frames, cards):
     return out
 
 
-def graph_against_eager(make_app, frames: int, label: str):
+def graph_against_eager(make_app, frames: int, label: str, path: str):
     """``frames`` frames of a graph app and an eager app built alike,
     framebuffers and winners bit-equal after every frame, K1 launched
-    bands-many times a frame by each. Returns (graph app, eager app)."""
+    bands-many times a frame by each; the graph app's K2 launches go to
+    ``K2_BY_PATH[path]``. Returns (graph app, eager app)."""
     from myrenderer_tpu_torch.ops import raster_cuda as rk
     apps = {"graph": make_app(), "eager": make_app()}
     apps["eager"].draw._eager_frames = True
@@ -749,7 +783,8 @@ def graph_against_eager(make_app, frames: int, label: str):
     for frame in range(1, frames + 1):
         for mode, app in apps.items():
             rk.K1.launches = 0
-            app.tick()
+            with k2_path(path if mode == "graph" else f"{path} (eager)"):
+                app.tick()
             launches[mode] += rk.K1.launches
         frames_equal(apps["graph"], apps["eager"], label, frame)
     bands = n_bands(apps["graph"])
@@ -1000,10 +1035,12 @@ def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
     dev = torch.device("cuda", 0)
     # (a) bit-equality, K1 launches a frame, no flag at big scale 1
     demo = graph_against_eager(lambda: DemoApp(1920, 1080, device="cuda"),
-                               31, "demo 1920x1080, 31 frames")
+                               31, "demo 1920x1080, 31 frames",
+                               "demo_1080p_graph")
     bands = graph_against_eager(
         lambda: DemoApp(1920, 1080, mesh=make_mesh(devices=[dev] * 4)),
-        31, "demo 1920x1080 on 4 bands of one card, 31 frames")
+        31, "demo 1920x1080 on 4 bands of one card, 31 frames",
+        "demo_1080p_bands4_graph")
     out["demo_bands4_graph_launches"] = bands[2]
     # (b) host syncs a steady-state frame, by line
     syncs = {"demo graph": syncs_per_frame(demo[0]),
@@ -1057,7 +1094,8 @@ def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
     torch.cuda.empty_cache()
     # the stress scene
     stress = graph_against_eager(lambda: StressApp(device="cuda"), 20,
-                                 "stress 3840x2160, 20 frames")
+                                 "stress 3840x2160, 20 frames",
+                                 "stress_4k_graph")
     syncs_s = syncs_per_frame(stress[0])
     print(f"  host syncs a steady-state frame, stress graph: "
           f"{sum(syncs_s.values())}")
@@ -1070,7 +1108,8 @@ def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
     # the stress scene on 4 bands of one card: segmented graphs
     stress4 = graph_against_eager(
         lambda: StressApp(mesh=make_mesh(devices=[dev] * 4)), 20,
-        "stress 3840x2160 on 4 bands of one card, 20 frames")
+        "stress 3840x2160 on 4 bands of one card, 20 frames",
+        "stress_4k_bands4_graph")
     out["stress_bands4_graph_launches"] = stress4[2]
     syncs_s4 = syncs_per_frame(stress4[0])
     print(f"  host syncs a steady-state frame, stress 4 bands graph: "
@@ -1132,7 +1171,9 @@ def behaviour_scenes(card: str) -> dict:
         for k in range(SCENE_FRAMES):
             for mode, sc in modes.items():
                 rk.K1.launches = 0
-                sc.step(k)
+                with k2_path("behaviour_scenes" if mode == "graph"
+                             else f"behaviour_scenes ({mode})"):
+                    sc.step(k)
                 if mode == "graph":
                     launches += rk.K1.launches
             g, e, o = (modes[m] for m in ("graph", "eager", "oracle"))
@@ -1258,6 +1299,198 @@ def bench_smoke():
     return rk.K1.launches, row
 
 
+@contextlib.contextmanager
+def capture_setup_calls(store: list):
+    """Record the arguments of every K2 dispatch (``setup_pack_into``) a
+    frame makes, the table replaced by its row count ``rows``."""
+    import inspect
+    from myrenderer_tpu_torch.ops import setup_pack as sp
+    orig = sp.setup_pack_into
+    sig = inspect.signature(orig)
+
+    def wrapped(*args, **kw):
+        call = sig.bind(*args, **kw)
+        call.apply_defaults()
+        call = dict(call.arguments)
+        call["rows"] = call.pop("table").packed.shape[0]
+        store.append(call)
+        return orig(*args, **kw)
+
+    sp.setup_pack_into = wrapped
+    try:
+        yield
+    finally:
+        sp.setup_pack_into = orig
+
+
+def zero_table(rows: int, dev):
+    from myrenderer_tpu_torch.ops import setup_pack as sp
+    return sp.RecordTable(
+        torch.zeros((rows, 32), dtype=torch.float32, device=dev),
+        torch.zeros(rows, dtype=torch.bool, device=dev),
+        torch.zeros((4, rows), dtype=torch.float32, device=dev))
+
+
+def k2_args(call) -> dict:
+    """``call`` without its row count: K2's and its plain version's
+    arguments after the table."""
+    return {k: v for k, v in call.items() if k != "rows"}
+
+
+def k2_against_plain(call, dev):
+    """K2 and its plain version on one call's inputs, each into its own
+    zeroed table of the call's rows. Returns (values that differ, the
+    largest finite difference); NaN against NaN counts as equal."""
+    from myrenderer_tpu_torch.ops import setup_pack as sp
+    got, want = zero_table(call["rows"], dev), zero_table(call["rows"], dev)
+    launches = sp.K2.launches
+    sp.K2(got, **k2_args(call))
+    sp.K2.launches = launches
+    sp.setup_pack_reference(want, **k2_args(call))
+    torch.cuda.synchronize()
+    bad, err = 0, 0.0
+    for a, b in zip(got, want):
+        if a.is_floating_point():
+            differ = ((a.view(torch.int32) != b.view(torch.int32))
+                      & ~(torch.isnan(a) & torch.isnan(b)))
+            both = torch.isfinite(a) & torch.isfinite(b)
+            if bool(both.any()):
+                err = max(err, float((a[both] - b[both]).abs().max()))
+        else:
+            differ = a != b
+        bad += int(differ.sum())
+    return bad, err
+
+
+def k2_bound(calls):
+    """K2's bound over ``calls``: (ms, "bytes" or "operations", bytes).
+    Each triangle's clip positions and varyings (96 bytes), valid flag
+    and id (4 bytes, when given) are read once, its record (128), box
+    (16) and flag (1) written once; K2_OPS_PER_TRI fp32 operations a
+    triangle."""
+    tris = sum(c["tri_clip"].shape[0] for c in calls)
+    nbytes = sum(c["tri_clip"].shape[0]
+                 * (96 + 1 + (0 if c["ids"] is None else 4) + 128 + 16 + 1)
+                 for c in calls)
+    ms_bytes = nbytes / 3.35e12 * 1e3
+    ms_ops = K2_OPS_PER_TRI * tris / 67e12 * 1e3
+    return ((ms_bytes, "bytes", nbytes) if ms_bytes >= ms_ops
+            else (ms_ops, "operations", nbytes))
+
+
+def time_k2(calls, dev, flush, label, card):
+    """K2 alone over one frame's calls (its launches a frame) beside its
+    plain version (plain, K2, K2, plain), then frame by frame with the L2
+    flushed; the timing launches are taken back out of K2's count."""
+    from myrenderer_tpu_torch.ops import setup_pack as sp
+    calls = [c for c in calls if c["tri_clip"].shape[0]]
+    tables = [zero_table(c["rows"], dev) for c in calls]
+
+    def k2_frame():
+        for c, t in zip(calls, tables):
+            sp.K2(t, **k2_args(c))
+
+    def plain_frame():
+        for c, t in zip(calls, tables):
+            sp.setup_pack_reference(t, **k2_args(c))
+
+    launches = sp.K2.launches
+    p1 = time_call(plain_frame, 5)
+    k_a = time_call(k2_frame, 100, head_start=True)
+    k_b = time_call(k2_frame, 100, head_start=True)
+    cold = time_cold(k2_frame, 50, flush)
+    sp.K2.launches = launches
+    p2 = time_call(plain_frame, 5)
+    ms, plain_ms = min(k_a, k_b), min(p1, p2)
+    bound_ms, bound_by, nbytes = k2_bound(calls)
+    tris = sum(c["tri_clip"].shape[0] for c in calls)
+    print(f"  K2 at {label} ({len(calls)} launches a frame, {tris} "
+          f"triangles, {nbytes} bytes): {ms:.4f} ms a frame (runs "
+          f"{k_a:.4f}, {k_b:.4f}); bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{100.0 * bound_ms / ms:.1f} % of it; frame by frame with the L2 "
+          f"flushed (median of 50): {cold:.4f} ms "
+          f"({100.0 * bound_ms / cold:.1f} %); plain version {plain_ms:.3f} "
+          f"ms (runs {p1:.3f}, {p2:.3f}); card: {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "cold_ms": cold, "bytes": nbytes,
+            "triangles": tris, "launches_a_frame": len(calls)}
+
+
+def k2_phase(dev, card: str, flush) -> dict:
+    """Phase 14: K2 against its plain version, bit for bit, on random
+    batches and on the 1080p demo's and the 4K stress scene's frame-1
+    calls; K2 alone at those calls' shapes."""
+    import itertools
+    from myrenderer_tpu_torch.app.demo import DemoApp
+    from myrenderer_tpu_torch.app.stress import StressApp
+    from myrenderer_tpu_torch.utils.trisets import setup_batch
+    err = 0.0
+    combos = list(itertools.product(("back", "front", "none"),
+                                    (False, True), (None, 0.0, 2.0),
+                                    (False, True)))
+    for i, (cull, planar, bias, with_ids) in enumerate(combos):
+        T = 3000 + 17 * i
+        clip, vary, valid, ids = (torch.from_numpy(a).to(dev)
+                                  for a in setup_batch(T, 100 + i))
+        if i % 2:
+            # strided views: varyings stored channel-major, clip positions
+            # inside a wider array
+            vary = vary.transpose(1, 2).contiguous().transpose(1, 2)
+            wide = torch.zeros((T, 3, 8), device=dev)
+            wide[..., 2:6] = clip
+            clip = wide[..., 2:6]
+        call = {"rows": T + 48, "row0": 37, "tri_clip": clip,
+                "tri_vary": vary, "valid": valid, "width": 1920,
+                "height": 1080, "cull_mode": cull, "z_bias": bias,
+                "planar": planar, "base": 1000,
+                "ids": ids if with_ids else None}
+        bad, e = k2_against_plain(call, dev)
+        if bad:
+            raise AssertionError(f"K2 differs from its plain version in "
+                                 f"{bad} values: {cull}, planar {planar}, "
+                                 f"z bias {bias}, ids {with_ids}")
+        err = max(err, e)
+    print(f"  random batches: {len(combos)} (every cull mode, layout, z bias "
+          f"and ids; 3,000-3,595 triangles with w at W_EPS, degenerate, "
+          f"subnormal, huge and non-finite rows; half through strided "
+          f"views; from row 37): every lane, flag and box bit-equal to the "
+          f"plain version")
+    shapes = {}
+    for name, make in (("demo_1080p", lambda: DemoApp(1920, 1080,
+                                                       device="cuda")),
+                       ("stress_4k", lambda: StressApp(device="cuda"))):
+        app = make()
+        app.draw._eager_frames = True
+        calls = []
+        with capture_setup_calls(calls):
+            app.tick()
+        assert_no_flags(app, f"{name} frame 1 (K2's calls)")
+        # each batch's call, then its appendee block's
+        for j, c in enumerate(calls):
+            bad, e = k2_against_plain(c, dev)
+            T = c["tri_clip"].shape[0]
+            print(f"  {name} frame 1, K2 call at rows [{c['row0']}, "
+                  f"{c['row0'] + T}) of {c['rows']}: {T} triangles "
+                  f"({'its appendee block' if j % 2 else 'a batch'}"
+                  f", cull {c['cull_mode']}, z bias {c['z_bias']}, planar "
+                  f"{c['planar']}, ids {c['ids'] is not None}): "
+                  f"{bad} values differ")
+            if bad:
+                raise AssertionError(f"K2 differs from its plain version on "
+                                     f"{name}'s frame 1")
+            err = max(err, e)
+        shapes[name] = time_k2(calls, dev, flush,
+                               f"{name} frame-1 calls", card)
+        del app, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    by_path = {k: v for k, v in K2_BY_PATH.items() if "(" not in k}
+    print(f"  K2 launches by path (each counted from 0 around it): "
+          f"{by_path}; card: {card}")
+    return {"max_abs_err": err, "shapes": shapes,
+            "random_batches": len(combos)}
+
+
 def main() -> int:
     phase("1 environment")
     if not torch.cuda.is_available():
@@ -1274,14 +1507,18 @@ def main() -> int:
           f"card: {card}")
     dev = torch.device("cuda", 0)
 
-    phase("2 build K1")
+    phase("2 build K1 and K2")
+    from myrenderer_tpu_torch.ops import setup_pack as sp
     t0 = time.perf_counter()
-    rk.K1.build()
-    print(f"  built in {time.perf_counter() - t0:.3f} s (nvcc "
-          f"{rk.K1.build_seconds:.3f} s)")
-    for line in rk.K1.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print("  ptxas:", line.strip())
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda k: k.build(), (rk.K1, sp.K2)))
+    print(f"  built in {time.perf_counter() - t0:.3f} s (nvcc, started "
+          f"together: K1 {rk.K1.build_seconds:.3f} s, K2 "
+          f"{sp.K2.build_seconds:.3f} s)")
+    for name, kernel in (("K1", rk.K1), ("K2", sp.K2)):
+        for line in kernel.build_log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"  ptxas {name}:", line.strip())
 
     phase("3 K1 against its plain version on the card")
     for n, seed, (H, W), dup in ((1, 0, (48, 160), 0), (7, 1, (48, 160), 0),
@@ -1357,7 +1594,8 @@ def main() -> int:
         plain.tick()
         plain_ms_a = time_frames(plain, PLAIN_FRAMES)
     rk.K1.launches = 0
-    ms = time_frames(app, TIMED_FRAMES)
+    with k2_path("demo_1080p"):
+        ms = time_frames(app, TIMED_FRAMES)
     path_launches = rk.K1.launches
     with plain_k1():
         plain_ms_b = time_frames(plain, PLAIN_FRAMES)
@@ -1365,6 +1603,9 @@ def main() -> int:
     if path_launches != TIMED_FRAMES:
         raise AssertionError(f"K1 launched {path_launches} times in "
                              f"{TIMED_FRAMES} frames")
+    if K2_BY_PATH["demo_1080p"] != 2 * batches(app) * TIMED_FRAMES:
+        raise AssertionError(f"K2 launched {K2_BY_PATH['demo_1080p']} "
+                             f"times in {TIMED_FRAMES} frames")
     fb = app.window.framebuffer
     if fb.shape != (1080, 1920, 4) or not bool(torch.isfinite(fb).all()):
         raise AssertionError("1080p framebuffer is not finite f32[1080, "
@@ -1376,7 +1617,8 @@ def main() -> int:
     assert_no_flags(app, "demo 1920x1080")
     assert_no_flags(plain, "demo 1920x1080, plain path")
     print(f"  K1 path (CUDA graph replay): {ms:.3f} ms/frame over "
-          f"{TIMED_FRAMES} frames, {path_launches} K1 launches; "
+          f"{TIMED_FRAMES} frames, {path_launches} K1 launches, "
+          f"{K2_BY_PATH['demo_1080p']} K2 launches; "
           f"plain-version path (eager): {plain_ms:.3f} ms/frame "
           f"({plain_ms_a:.3f}, {plain_ms_b:.3f}); card: {card}")
 
@@ -1431,11 +1673,15 @@ def main() -> int:
         stress.tick()
     fb_k1 = stress.window.framebuffer.clone()
     rk.K1.launches = 0
-    stress_ms = time_frames(stress, STRESS_FRAMES)
+    with k2_path("stress_4k"):
+        stress_ms = time_frames(stress, STRESS_FRAMES)
     stress_launches = rk.K1.launches
     if stress_launches != STRESS_FRAMES:
         raise AssertionError(f"K1 launched {stress_launches} times in "
                              f"{STRESS_FRAMES} stress frames")
+    if K2_BY_PATH["stress_4k"] != 2 * batches(stress) * STRESS_FRAMES:
+        raise AssertionError(f"K2 launched {K2_BY_PATH['stress_4k']} times "
+                             f"in {STRESS_FRAMES} stress frames")
     fb = stress.window.framebuffer
     if fb.shape != (2160, 3840, 4) or not bool(torch.isfinite(fb).all()):
         raise AssertionError("stress framebuffer is not finite f32[2160, "
@@ -1454,7 +1700,8 @@ def main() -> int:
     print(f"  K1 path (CUDA graph replay): {stress_ms:.3f} ms/frame over "
           f"{STRESS_FRAMES} frames "
           f"({stress.triangles / stress_ms / 1e3:.2f} Mtri/s), "
-          f"{stress_launches} K1 launches; plain-version path: "
+          f"{stress_launches} K1 launches, {K2_BY_PATH['stress_4k']} K2 "
+          f"launches; plain-version path: "
           f"{stress_plain_ms:.3f} ms/frame over {STRESS_PLAIN_FRAMES} "
           f"frames, last frame bit-equal to the K1 path's; card: {card}")
     shapes["stress_4k"] = time_k1(s_inputs, 50, 2,
@@ -1510,7 +1757,8 @@ def main() -> int:
     phase("7 the sequential frame path on the card")
     frames = {d: sequential_scene(d) for d in ("cuda", "cpu")}
     rk.K1.launches = 0
-    fb_gpu, win_gpu = frames["cuda"]()
+    with k2_path("sequential"):
+        fb_gpu, win_gpu = frames["cuda"]()
     seq_launches = rk.K1.launches
     fb_cpu, win_cpu = frames["cpu"]()
     if seq_launches != 3 or len(win_gpu) != 3:
@@ -1527,7 +1775,8 @@ def main() -> int:
 
     phase("8 fragment-stage texture sampling through K1")
     rk.K1.launches = 0
-    assert_goldens_rule(textured_quad_frame("cuda"), "textured_128.png")
+    with k2_path("textured"):
+        assert_goldens_rule(textured_quad_frame("cuda"), "textured_128.png")
     tex_launches = rk.K1.launches
     if tex_launches != 1:
         raise AssertionError("the textured frame did not go through K1")
@@ -1539,7 +1788,7 @@ def main() -> int:
     app.draw._eager_frames = True       # its K1 inputs
     store, records = [], []
     rk.K1.launches = 0
-    with capture_k1_inputs(store, records):
+    with capture_k1_inputs(store, records), k2_path("demo_8k"):
         app.tick()
     k8_launches = rk.K1.launches
     if k8_launches != 1 or len(store) != 1:
@@ -1579,7 +1828,7 @@ def main() -> int:
     # (e) ms/frame beside the single-device frame, in turns
     single.renderer.debug_winner = banded.renderer.debug_winner = False
     demo_ms, demo_launches = time_in_turns({1: single, 4: banded},
-                                           BAND_FRAMES)
+                                           BAND_FRAMES, path="demo_1080p")
     demo_bands_launches = demo_launches[4]
     demo_syncs = {1: syncs_per_frame(single), 4: syncs_per_frame(banded)}
     report_turns("demo 1920x1080", demo_ms, demo_launches, demo_syncs,
@@ -1610,8 +1859,8 @@ def main() -> int:
         stress_apps[n] = app
     for app in stress_apps.values():
         app.renderer.debug_winner = False
-    stress_turn_ms, stress_launches_b = time_in_turns(stress_apps,
-                                                      BAND_STRESS_FRAMES)
+    stress_turn_ms, stress_launches_b = time_in_turns(
+        stress_apps, BAND_STRESS_FRAMES, path="stress_4k")
     stress_syncs = {n: syncs_per_frame(a) for n, a in stress_apps.items()}
     report_turns("stress 3840x2160", stress_turn_ms, stress_launches_b,
                  stress_syncs, BAND_STRESS_FRAMES, card)
@@ -1655,12 +1904,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rk.K1.launches = 0
-    bench_launches, bench_row = bench_smoke()
+    with k2_path("bench_smoke"):
+        bench_launches, bench_row = bench_smoke()
     print(f"  bench_torch.py --smoke: {bench_row['metric']} "
           f"{bench_row['value']:.2f} fps, correct, {bench_launches} K1 "
           f"launches; card: {card}")
 
-    phase("14 results")
+    phase("14 K2 against its plain version on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    k2 = k2_phase(dev, card, flush)
+
+    phase("15 results")
     by_path = {"demo_1080p": path_launches, "stress_4k": stress_launches,
                "sequential": seq_launches, "textured": tex_launches,
                "demo_8k": k8_launches,
@@ -1676,6 +1931,18 @@ def main() -> int:
         # phase 10 (d): one band a card, per-card segmented graphs
         by_path["demo_1080p_cards_graph"] = cards["demo_launches"]
         by_path["stress_4k_cards_graph"] = cards["stress_launches"]
+    # K2 on every path K1 is counted on (the eager and oracle twins of
+    # phases 11-12 are comparisons, not paths)
+    k2_by_path = {k: v for k, v in K2_BY_PATH.items() if "(" not in k}
+    missing = [k for k in ("demo_1080p", "stress_4k", "sequential",
+                           "textured", "demo_8k", "demo_1080p_bands1",
+                           "demo_1080p_bands4", "stress_4k_bands4",
+                           "stress_4k_bands8", "demo_1080p_graph",
+                           "demo_1080p_bands4_graph", "stress_4k_graph",
+                           "stress_4k_bands4_graph", "behaviour_scenes",
+                           "bench_smoke") if not k2_by_path.get(k)]
+    if missing:
+        raise AssertionError(f"K2 was not launched on {missing}")
     print(json.dumps({"kernels": [{
         "name": "K1 raster_tile",
         "route": "cuda",
@@ -1710,6 +1977,26 @@ def main() -> int:
         # K1 against the full-frame oracle
         "behaviour_scenes": scenes["scenes"],
         "oracle_check": oracle,
+    }, {
+        "name": "K2 setup_pack",
+        "route": "cuda",
+        "source": "myrenderer_tpu_torch/csrc/setup_pack.cu",
+        # no Pallas kernel: the JAX frame's per-batch setup + pack, which
+        # XLA fuses
+        "replaces": "myrenderer_tpu/renderer/draw.py:327",
+        "launches": sum(k2_by_path.values()),
+        "launches_by_path": k2_by_path,
+        "max_abs_err": k2["max_abs_err"],
+        # the main path's shapes (the 1080p demo's frame 1: its 4
+        # launches); the stress frame's under "shapes"
+        "ms": k2["shapes"]["demo_1080p"]["ms"],
+        "plain_ms": k2["shapes"]["demo_1080p"]["plain_ms"],
+        "bound_ms": k2["shapes"]["demo_1080p"]["bound_ms"],
+        "bound_by": k2["shapes"]["demo_1080p"]["bound_by"],
+        "library_ms": None,       # no PyTorch call computes K2's function
+        "shapes": k2["shapes"],
+        "random_batches": k2["random_batches"],
+        "build_s": sp.K2.build_seconds,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

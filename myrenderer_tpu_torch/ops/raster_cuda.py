@@ -14,32 +14,22 @@ it runs :func:`rasterize_tiles_reference`, the same function in plain
 torch. There is no fallback from one to the other.
 
 The kernel is built at first use with ``nvcc`` for ``sm_90a`` into
-``build/`` at the repository root (a content-addressed file name, so a
-changed source rebuilds), and bound with ``ctypes``.
+``build/`` at the repository root (``cuda_build.build_library``, shared
+with K2), and bound with ``ctypes``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
-import time
 from typing import Optional
 
 import torch
 
 from . import raster_common as rc
+from .cuda_build import CSRC, build_library
 
-_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                       "csrc", "raster_tile.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
-                         "..", "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-ftz=false", "-prec-div=true", "-prec-sqrt=true",
-              "-Xptxas", "-v"]
+_SOURCE = os.path.join(CSRC, "raster_tile.cu")
 
 TILE_H = 16
 TILE_W = 16
@@ -63,30 +53,7 @@ class RasterTileKernel:
         """Compile (once per source and flag set) and load the kernel."""
         if self.lib is not None:
             return self.lib
-        from torch.utils.cpp_extension import CUDA_HOME
-        if CUDA_HOME is None:
-            raise RuntimeError("building K1 needs the CUDA toolkit (nvcc)")
-        with open(_SOURCE, "rb") as f:
-            src = f.read()
-        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        path = os.path.join(BUILD_DIR,
-                            f"raster_tile_{key.hexdigest()[:16]}.so")
-        t0 = time.perf_counter()
-        if not os.path.exists(path):
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            cmd = [os.path.join(CUDA_HOME, "bin", "nvcc"), *NVCC_FLAGS,
-                   "-o", tmp, os.path.abspath(_SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            self.build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed building K1:\n"
-                                   f"{self.build_log}")
-            os.replace(tmp, path)
-        self.build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(path)
+        lib, self.build_seconds, self.build_log = build_library(_SOURCE, "K1")
         p = ctypes.c_void_p
         i32 = ctypes.c_int
         lib.raster_tile_launch.argtypes = [p, p, p, p, p, p, p,

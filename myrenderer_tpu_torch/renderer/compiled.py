@@ -25,9 +25,9 @@ and their device overflow flags give the frame.
   included) runs at capture only; replays run the recorded kernels.
   Python-side values read by a vertex function are baked in, as
   ``jax.jit`` bakes them into its trace.
-- **Launch counting.** K1's launches recorded in the graph are taken
-  back out of ``K1.launches`` at capture (nothing ran) and added at each
-  replay.
+- **Launch counting.** The launches of the port's kernels (K1, K2)
+  recorded in the graph are taken back out of their counts at capture
+  (nothing ran) and added at each replay.
 - **A mesh frame** (:class:`CompiledMeshFrame`) is one program across
   cards in JAX; here it is cut at its all-gather into two segments, the
   shards' pre-kernel stage and the bands' raster stage, and each segment
@@ -53,7 +53,30 @@ import numpy as np
 import torch
 
 from ..ops.raster_cuda import K1
+from ..ops.setup_pack import K2
 from ..parallel.sharding import all_gather, leaves, tree_map
+
+
+# the kernels whose launches a replay counts
+KERNELS = (K1, K2)
+
+
+@contextlib.contextmanager
+def _captured_launches(counts: dict):
+    """Fill ``counts`` with each kernel's launches recorded inside the
+    block and take them back out of its count: a capture runs nothing."""
+    before = {k: k.launches for k in KERNELS}
+    try:
+        yield
+    finally:
+        for k, n in before.items():
+            counts[k] = k.launches - n
+            k.launches = n
+
+
+def _count_replay(counts: dict):
+    for k, n in counts.items():
+        k.launches += n
 
 
 def device_args(args, device: torch.device):
@@ -142,13 +165,15 @@ class _StaticInputs:
 
 class CompiledFrame:
     """One frame plan's CUDA graph at one capacity rung: its static
-    inputs, the graph and its output buffers. ``k1_launches`` is the K1
-    launches a replay makes, ``capture_seconds`` the capture's wall time
-    and ``pool_bytes`` the device memory its pool reserved."""
+    inputs, the graph and its output buffers. ``launches`` holds the
+    launches of each kernel (:data:`KERNELS`) a replay makes,
+    ``k1_launches`` K1's, ``capture_seconds`` the capture's wall time and
+    ``pool_bytes`` the device memory its pool reserved."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.graph = None
+        self.launches = {}
         self.k1_launches = 0
         self.capture_seconds = None
         self.pool_bytes = None
@@ -179,14 +204,10 @@ class CompiledFrame:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
             graph = torch.cuda.CUDAGraph()
-            before = K1.launches
-            try:
+            with _captured_launches(self.launches):
                 with torch.cuda.graph(graph):
                     self._out = fn(static)
-            finally:
-                # nothing was launched while capturing
-                self.k1_launches = K1.launches - before
-                K1.launches = before
+            self.k1_launches = self.launches[K1]
             self.pool_bytes = torch.cuda.memory_reserved() - reserved
             self.capture_seconds = time.perf_counter() - t0
         self.graph = graph
@@ -197,7 +218,7 @@ class CompiledFrame:
         with torch.cuda.device(self.device):
             self._inputs.load(args)
             self.graph.replay()
-            K1.launches += self.k1_launches
+            _count_replay(self.launches)
             return _copy_out(self._out)
 
 
@@ -209,15 +230,16 @@ class CompiledMeshFrame:
     the bands on a device, from every shard's pieces on it) and
     ``outputs([band_stage result per device])`` -> the frame. ``args``
     holds ``views``, one input tree per distinct device of the mesh
-    (``devices``). ``k1_launches``, ``capture_seconds`` and
-    ``pool_bytes`` are summed over the cards, ``segments`` lists
-    (device, "shards" or "bands", capture seconds, pool bytes) of each
-    graph; ``gather_bytes`` is what the all-gather copies between cards
-    a frame."""
+    (``devices``). ``launches`` (``k1_launches`` K1's),
+    ``capture_seconds`` and ``pool_bytes`` are summed over the cards,
+    ``segments`` lists (device, "shards" or "bands", capture seconds,
+    pool bytes) of each graph; ``gather_bytes`` is what the all-gather
+    copies between cards a frame."""
 
     def __init__(self, devices: list):
         self.devices = list(devices)
         self.graphs = []          # per device: [shard graph, band graph]
+        self.launches = {}
         self.k1_launches = 0
         self.capture_seconds = None
         self.pool_bytes = None
@@ -263,8 +285,7 @@ class CompiledMeshFrame:
             torch.cuda.synchronize(d)
         torch.cuda.empty_cache()
         reserved = [torch.cuda.memory_reserved(d) for d in devices]
-        before = K1.launches
-        try:
+        with _captured_launches(self.launches):
             for v, d in zip(static, devices):
                 graph, pieces = self._capture(self._shards,
                                               (shard_stage, v, d), d)
@@ -277,10 +298,7 @@ class CompiledMeshFrame:
                                              pool=graphs[0].pool())
                 graphs.append(graph)
                 self._out.append(out_d)
-        finally:
-            # nothing was launched while capturing
-            self.k1_launches = K1.launches - before
-            K1.launches = before
+        self.k1_launches = self.launches[K1]
         self.pool_bytes = sum(torch.cuda.memory_reserved(d) - r
                               for d, r in zip(devices, reserved))
         self.capture_seconds = time.perf_counter() - t0
@@ -342,5 +360,5 @@ class CompiledMeshFrame:
         for d, (_shard_graph, band_graph) in zip(self.devices, self.graphs):
             with torch.cuda.device(d):
                 band_graph.replay()
-        K1.launches += self.k1_launches
+        _count_replay(self.launches)
         return self._outputs([_copy_out(o) for o in self._out])

@@ -4,7 +4,8 @@ Port of ``myrenderer_tpu/renderer/draw.py``. Mirrors
 ``Renderer/Draw.zig``'s API (begin / clear / draw_surface / end). A
 frame is a function of its arguments (:func:`_frame`): scene transform
 composition, culling, the vertex stage, per-batch eye-plane clip +
-setup, raster passes (K1 on the card) and shading. Its shapes are
+setup + pack (K2 on the card, into one record table a raster pass),
+raster passes (K1 on the card) and shading. Its shapes are
 static and it reads nothing back to the host; it returns the
 framebuffer, the winners and an overflow flag ``bool[2]`` (the pair
 capacity's lane, the clip capacity's lane). ``end`` runs it, on a card
@@ -86,6 +87,7 @@ import torch
 
 from ..ops import raster, raster_ref
 from ..ops import raster_common as rc
+from ..ops import setup_pack as sp
 from ..ops import vertex_stage as vs
 from ..parallel.sharding import Banded, all_gather, shard_ranges, split_bands
 from .compiled import CompiledFrame, CompiledMeshFrame, device_args
@@ -347,27 +349,25 @@ def _batch_vertex_products(plan: _FramePlan, args: dict, world, device):
 
 
 def _setup_batch(plan: _FramePlan, tris: rc.Triangles, valid, cull_mode,
-                 z_bias=None, base_index: int = 0,
+                 table: sp.RecordTable, z_bias=None, base_index: int = 0,
                  cap: int = CLIP_CAPACITY):
     """Per-batch eye-plane clip + triangle setup + record pack + viewport
-    bbox. Returns (packed f32[T + 2*cap, 32], valid, bbox, clip overflow
-    bool[]); the id lane holds global submission ranks from
-    ``base_index``."""
+    bbox into rows [base_index, base_index + T + 2*cap) of the pass's
+    ``table``: the batch's records, then its appendee block, each by one
+    :func:`sp.setup_pack_into`; the id lane holds global submission
+    ranks from ``base_index``, a record's row. Returns (packed f32[T +
+    2*cap, 32], valid, bbox, clip overflow bool[]), the first three views
+    of those rows."""
     W, H = plan.width, plan.height
+    T = tris.clip.shape[0]
     app_clip, app_vary, app_valid, _sel, overflow = rc.select_straddlers(
         tris.clip, tris.vary, valid, cap)
-    T = tris.clip.shape[0]
-    tc = rc.triangle_setup(tris.clip, tris.vary, valid, W, H, cull_mode,
-                           z_bias=z_bias, planar=tris.planar)
-    tc_app = rc.triangle_setup(app_clip, app_vary, app_valid, W, H,
-                               cull_mode, z_bias=z_bias)
-    packed = torch.cat([
-        rc.pack_coeffs_full(tc, base=base_index, ids=tris.ids),
-        rc.pack_coeffs_full(tc_app, base=base_index + T)])
-    bbox = tuple(torch.cat(c) for c in zip(
-        raster.viewport_bbox(tris.clip, W, H),
-        raster.viewport_bbox(app_clip, W, H)))
-    return packed, torch.cat([tc.valid, tc_app.valid]), bbox, overflow
+    sp.setup_pack_into(table, base_index, tris.clip, tris.vary, valid, W, H,
+                       cull_mode, z_bias=z_bias, planar=tris.planar,
+                       base=base_index, ids=tris.ids)
+    sp.setup_pack_into(table, base_index + T, app_clip, app_vary, app_valid,
+                       W, H, cull_mode, z_bias=z_bias, base=base_index + T)
+    return (*table.rows(base_index, base_index + T + 2 * cap), overflow)
 
 
 def _batch_ids(plan: _FramePlan, cap: int) -> list:
@@ -435,23 +435,23 @@ def _merged_pass(plan: _FramePlan, args: dict, products, layout, fb, cap,
                  flags, setup):
     """Every surface in one raster pass. ``products`` holds (surface
     index, batch, setup input, FragmentCtx|None) per batch, and
-    ``setup(input, batch, z bias, first id)`` gives its (packed, valid,
-    bbox, clip overflow). Returns (fb, winner), one tensor per band each
-    (winner None without products)."""
+    ``setup(input, batch, z bias, first id, table)`` writes its T + 2*cap
+    rows of the pass's record table from the row of its first id and
+    gives its clip overflow. Returns (fb, winner), one tensor per band
+    each (winner None without products)."""
     if plan.clear_flags and plan.clear_flags[0]:
         fb = _band_clear(plan, layout, args["surfaces"][0]["clear"])
     if not products:
         return fb, None
     S = len(plan.surfaces)
-    packs, valids, bboxes, ranges = [], [], [], []
+    # one table for the pass: a batch's rows start at its first id
+    table = sp.new_table(sum(b.tri_count + 2 * cap for _s, b, _d, _c
+                             in products), layout[0][1])
+    ranges = []
     for (s_i, b, data, fctx), (bias, base) in zip(products,
                                                    _batch_ids(plan, cap)):
-        packed, v, bbox, ovf = setup(data, b, bias, base)
-        flags["clip"].append(ovf)
-        packs.append(packed)
-        valids.append(v)
-        bboxes.append(bbox)
-        end = base + packed.shape[0]
+        flags["clip"].append(setup(data, b, bias, base, table))
+        end = base + b.tri_count + 2 * cap
         # adjacent batches sharing a ctx-free fragment program coalesce
         # into one shading range
         fn = b.pipeline.fragment_fn
@@ -460,12 +460,10 @@ def _merged_pass(plan: _FramePlan, args: dict, products, layout, fb, cap,
             ranges[-1] = (ranges[-1][0], end, fn, None)
         else:
             ranges.append((base, end, fn, fctx))
-    packed = torch.cat(packs)
-    valid = torch.cat(valids)
-    bbox = tuple(torch.cat(cs) for cs in zip(*bboxes))
     depth = _band_fill(plan, layout, 2.0 * (S - 1) + 1.0)
-    _depth, fb, winner = _raster_pass(plan, layout, packed, valid, bbox,
-                                      depth, fb, ranges, flags)
+    _depth, fb, winner = _raster_pass(plan, layout, table.packed,
+                                      table.valid, table.boxes, depth, fb,
+                                      ranges, flags)
     return fb, winner
 
 
@@ -487,10 +485,12 @@ def _sequential_passes(plan: _FramePlan, args: dict, products, layout, fb,
             _s, _b, data, fctx = next(products)
             fn, cull = b.pipeline.fragment_fn, b.pipeline.cull_mode
             if plan.backend == "tile":
-                packed, v, bbox, ovf = setup(data, b, None, 0)
+                rows = b.tri_count + 2 * cap
+                table = sp.new_table(rows, layout[0][1])
+                ovf = setup(data, b, None, 0, table)
                 depth2, fb, winner = _raster_pass(
-                    plan, layout, packed, v, bbox, depth, fb,
-                    [(0, packed.shape[0], fn, fctx)], flags)
+                    plan, layout, table.packed, table.valid, table.boxes,
+                    depth, fb, [(0, rows, fn, fctx)], flags)
             else:
                 # the oracle renders whole frames (a mesh needs the tile
                 # backend): one band
@@ -549,9 +549,9 @@ def _frame(plan: _FramePlan, args: dict, device):
                 in _batch_vertex_products(plan, args, world, device)]
     cap = CLIP_CAPACITY * plan.big_scale
 
-    def setup(data, b, bias, base):
-        return _setup_batch(plan, *data, b.pipeline.cull_mode, z_bias=bias,
-                            base_index=base, cap=cap)
+    def setup(data, b, bias, base, table):
+        return _setup_batch(plan, *data, b.pipeline.cull_mode, table,
+                            z_bias=bias, base_index=base, cap=cap)[-1]
 
     fb, winners, overflow = _passes(plan, args, products,
                                     _band_layout(plan, device), cap, setup,
@@ -609,19 +609,19 @@ def _shard_setup(plan: _FramePlan, b: _BatchPlan, tris: rc.Triangles, valid,
                  lo: int, bias, base: int, cap: int) -> dict:
     """A shard's part of :func:`_setup_batch`: its straddler candidates,
     and the setup, records (ids from ``base``; a permuted producer's
-    ``ids`` are global) and boxes of its triangles; the shard holding the
-    batch's last triangle also gives its row."""
-    W, H = plan.width, plan.height
-    tc = rc.triangle_setup(tris.clip, tris.vary, valid, W, H,
-                           b.pipeline.cull_mode, z_bias=bias,
-                           planar=tris.planar)
+    ``ids`` are global) and boxes of its triangles, a table of its own
+    rows (:func:`sp.setup_pack_into`); the shard holding the batch's last
+    triangle also gives its row."""
+    table = sp.new_table(tris.clip.shape[0], tris.clip.device)
+    sp.setup_pack_into(table, 0, tris.clip, tris.vary, valid, plan.width,
+                       plan.height, b.pipeline.cull_mode, z_bias=bias,
+                       planar=tris.planar,
+                       base=base + (lo if tris.ids is None else 0),
+                       ids=tris.ids)
     piece = {
         "cand": rc.straddler_candidates(tris.clip, tris.vary, valid, cap, lo,
                                         b.tri_count),
-        "packed": rc.pack_coeffs_full(
-            tc, base=base + (lo if tris.ids is None else 0), ids=tris.ids),
-        "valid": tc.valid,
-        "bbox": raster.viewport_bbox(tris.clip, W, H),
+        "packed": table.packed, "valid": table.valid, "bbox": table.bbox,
     }
     if lo < b.tri_count == lo + tris.clip.shape[0]:
         piece["last"] = (tris.clip[-1:], tris.vary[-1:])
@@ -647,26 +647,26 @@ def _shard_stage(plan: _FramePlan, args: dict, device) -> dict:
 
 
 def _mesh_setup(plan: _FramePlan, pieces: dict, g: int, b: _BatchPlan,
-                bias, base: int, cap: int):
-    """:func:`_setup_batch`'s result for batch ``g`` from its shards'
-    pieces, all on one device: the straddlers merged
+                bias, base: int, cap: int, table: sp.RecordTable):
+    """:func:`_setup_batch` for batch ``g`` from its shards' pieces, all
+    on one device, into rows [base, base + T + 2*cap) of ``table``: the
+    shards' rows copied in shard order, then the straddlers merged
     (``rc.merge_straddlers``), clipped, set up and packed into the
-    appendee block, after the shards' records in shard order. Bit for
-    bit the table of one device."""
-    W, H = plan.width, plan.height
+    appendee block. Bit for bit the table of one device. Returns the
+    clip overflow."""
     parts = [pieces[g, k] for k in range(len(b.shards))]
+    for (lo, hi), p in zip(b.shards, parts):
+        table.packed[base + lo:base + hi] = p["packed"]
+        table.valid[base + lo:base + hi] = p["valid"]
+        table.bbox[:, base + lo:base + hi] = p["bbox"]
     last = next(p["last"] for p in parts if "last" in p)
     app_clip, app_vary, app_valid, _sel, overflow = rc.merge_straddlers(
         [p["cand"] for p in parts], *last, cap, b.tri_count)
-    tc_app = rc.triangle_setup(app_clip, app_vary, app_valid, W, H,
-                               b.pipeline.cull_mode, z_bias=bias)
-    packed = torch.cat([p["packed"] for p in parts]
-                       + [rc.pack_coeffs_full(tc_app,
-                                              base=base + b.tri_count)])
-    valid = torch.cat([p["valid"] for p in parts] + [tc_app.valid])
-    bbox = tuple(torch.cat(c) for c in zip(
-        *[p["bbox"] for p in parts], raster.viewport_bbox(app_clip, W, H)))
-    return packed, valid, bbox, overflow
+    sp.setup_pack_into(table, base + b.tri_count, app_clip, app_vary,
+                       app_valid, plan.width, plan.height,
+                       b.pipeline.cull_mode, z_bias=bias,
+                       base=base + b.tri_count)
+    return overflow
 
 
 def _band_stage(plan: _FramePlan, args: dict, pieces: dict, device):
@@ -682,8 +682,8 @@ def _band_stage(plan: _FramePlan, args: dict, pieces: dict, device):
             products.append((s_i, b, len(products), _fragment_ctx(
                 b, args["surfaces"][s_i]["batches"][b_i])))
 
-    def setup(g, b, bias, base):
-        return _mesh_setup(plan, pieces, g, b, bias, base, cap)
+    def setup(g, b, bias, base, table):
+        return _mesh_setup(plan, pieces, g, b, bias, base, cap, table)
 
     layout = [(y0, d) for y0, d in _band_layout(plan, device) if d == device]
     return _passes(plan, args, products, layout, cap, setup, device)

@@ -42,8 +42,9 @@ import numpy as np
 import torch
 
 from ..ops import raster_cuda as rk
+from ..ops.cuda_build import BUILD_DIR, NVCC_FLAGS
 
-LAB_DIR = os.path.join(rk.BUILD_DIR, "k1_lab")
+LAB_DIR = os.path.join(BUILD_DIR, "k1_lab")
 
 
 def _edit(src: str, old: str, new: str) -> str:
@@ -330,7 +331,7 @@ def _build(name: str, src: str):
     with open(cu, "w") as f:
         f.write(src)
     proc = subprocess.run([os.path.join(CUDA_HOME, "bin", "nvcc"),
-                           *rk.NVCC_FLAGS, "-o", so, cu],
+                           *NVCC_FLAGS, "-o", so, cu],
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")

@@ -1,6 +1,6 @@
-"""Triangle sets for K1's checks, made with numpy from a seed: the CPU
-parity tests (``tests/test_torch_*.py``) and ``chip_smoke.py`` on the
-card draw the same sets from here. Imports numpy only."""
+"""Triangle sets for K1's and K2's checks, made with numpy from a seed:
+the CPU parity tests (``tests/test_torch_*.py``) and ``chip_smoke.py`` on
+the card draw the same sets from here. Imports numpy only."""
 
 from __future__ import annotations
 
@@ -85,3 +85,37 @@ def band_slivers(n, seed, H, W, y0, w_range=(0.8, 5.0)):
                            w[..., None]], axis=-1)
     vary = rng.uniform(0, 1, (n, 3, 4)).astype(np.float32)
     return clip, vary
+
+
+W_EPS = np.float32(1e-6)        # raster_common.W_EPS
+
+
+def setup_batch(n, seed):
+    """A batch for K2 (clip + setup + pack): (clip f32[n, 3, 4], vary
+    f32[n, 3, 4], valid bool[n], ids i32[n], a permutation). Both
+    windings, w across the eye plane, and in each eighth of the batch
+    its own hard rows: w at, just above and just below W_EPS, 0 and -0;
+    a repeated vertex (zero area); three collinear vertices; subnormal
+    coordinates; huge coordinates; an inf or a NaN coordinate."""
+    clip, vary = random_triangles(n, seed, w_range=(-0.5, 5.0),
+                                  mixed_winding=True)
+    rng = np.random.default_rng(seed + 1)
+    k = max(n // 8, 1)
+    part = [slice(i * k, min((i + 1) * k, n)) for i in range(7)]
+    near = np.asarray([W_EPS, np.nextafter(W_EPS, np.float32(1)),
+                       np.nextafter(W_EPS, np.float32(0)), 0.0, -0.0, 8e-6],
+                      np.float32)
+    w = clip[part[0], :, 3]
+    clip[part[0], :, 3] = rng.choice(near, w.shape)
+    clip[part[1], 1] = clip[part[1], 0]
+    clip[part[2], 2] = 0.5 * (clip[part[2], 0] + clip[part[2], 1])
+    sub = clip[part[3], :, :2]
+    clip[part[3], :, :2] = sub * np.float32(1e-39)
+    clip[part[4], :, :3] *= np.float32(1e30)
+    bad = clip[part[5]]
+    rows = np.arange(bad.shape[0])
+    bad[rows, rows % 3, rows % 4] = np.where(rows % 2, np.inf, np.nan)
+    clip[part[5]] = bad
+    valid = rng.uniform(size=n) < 0.9
+    ids = rng.permutation(n).astype(np.int32)
+    return clip, vary, valid, ids

@@ -16,6 +16,7 @@ from myrenderer_tpu.ops import raster_pallas as jrp
 from myrenderer_tpu.renderer import draw as jdraw
 from myrenderer_tpu_torch.app.demo import DemoApp
 from myrenderer_tpu_torch.ops import raster_common as trc
+from myrenderer_tpu_torch.ops import setup_pack as sp
 from myrenderer_tpu_torch.ops import vertex_stage as tvs
 from myrenderer_tpu_torch.renderer import draw as tdraw
 from myrenderer_tpu_torch.renderer.compiled import device_args
@@ -67,9 +68,11 @@ def torch_setup_batch(clip, vary, valid, width, height, cull_mode="back",
     tris = trc.Triangles(torch.from_numpy(clip), torch.from_numpy(vary),
                          None if ids is None else torch.from_numpy(ids),
                          planar)
+    table = sp.new_table(base + clip.shape[0] + 2 * tdraw.CLIP_CAPACITY,
+                         "cpu")
     packed, v, bbox, _ovf = tdraw._setup_batch(
-        plan, tris, torch.from_numpy(valid), cull_mode, z_bias=z_bias,
-        base_index=base)
+        plan, tris, torch.from_numpy(valid), cull_mode, table,
+        z_bias=z_bias, base_index=base)
     return packed, v, bbox
 
 
