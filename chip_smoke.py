@@ -6,8 +6,9 @@ Drives myrenderer_tpu_torch through its entry points and exits non-zero
 at the first failed phase:
 
 1. environment: torch version, card name and power limit;
-2. build: K1 (csrc/raster_tile.cu) and K2 (csrc/setup_pack.cu), one
-   nvcc each, started together, timed;
+2. build: K1 (csrc/raster_tile.cu), K2 (csrc/setup_pack.cu), K3
+   (csrc/terrain_vertex.cu) and K4 (csrc/straddlers.cu), one nvcc each,
+   started together, timed;
 3. K1 against its plain PyTorch version on the card: random triangle
    sets (with duplicated triangles for depth ties), a crowded tile (1,200
    small triangles and 400 duplicates in one tile: 13 chunks of K1's
@@ -102,7 +103,23 @@ at the first failed phase:
    frame's calls at those shapes, back to back and with the L2 flushed,
    beside its plain version and its bound; its launches on every path
    (counted from 0 around each path as K1's are, and required);
-15. a JSON line of the kernels, the card line, and the last line
+15. K3 (the terrain's whole-stream vertex shader,
+   ``ops/terrain_vertex.py``) and K4 (the straddler selection,
+   ``ops/straddlers.py``) against their plain PyTorch versions on the
+   card, bit for bit in every value: K3 on random terrains of the demo's
+   size (100), the stress scene's (708) and three instances of size 37
+   with random worlds (heights with 0, 1 and subnormals); K4 on the CPU
+   tests' batches (``trisets.STRADDLER_CASES``: no straddler, one of each
+   kind, exactly cap and cap + 1, fewer triangles than cap, one triangle,
+   w at W_EPS and NaN, invalid rows among straddlers) and on four batches
+   of 1,002,528 triangles; both on every call of the 1080p demo's and the
+   4K stress scene's eager frame 1 (captured at ``terrain_vertex`` and
+   ``select_straddlers``); each alone a frame's calls at a time (warm,
+   L2-flushed) beside its plain version and its bytes bound; their
+   launches on every path (counted from 0 around each path as K2's are):
+   K3 required on every path that draws a terrain, K4 on every path
+   without a mesh;
+16. a JSON line of the kernels (K1-K4), the card line, and the last line
    {"ok": true, "device": {...}}.
 
 K1's bound at a shape is the larger of its bytes over 3.35 TB/s (what
@@ -118,7 +135,11 @@ each call. K2's bound is the larger of its bytes over 3.35 TB/s (each
 triangle's clip positions and varyings, 96 bytes, its valid flag and id
 in; its 128-byte record, 16-byte box and flag out) and its
 K2_OPS_PER_TRI fp32 operations a triangle over 67 TFLOP/s; it is timed
-like K1, a frame's launches at a time.
+like K1, a frame's launches at a time. K3's bound is its bytes over 3.35
+TB/s (heights, data transform and world matrix in; 100 bytes a triangle
+out), K4's its bytes (49 a triangle for the sectors that hold the w
+lanes and the valid flag, then the rows it selects in and the appendee
+block out); both are timed like K2.
 
 Imports no JAX. Needs one CUDA card; fails without one.
 """
@@ -154,12 +175,19 @@ BAND_FRAMES = 10          # demo frames a turn, banded and on one device
 BAND_STRESS_FRAMES = 5    # stress frames a turn, banded and on one device
 BAND_ROUNDS = 3           # turns of each
 SPIN_HZ = 2.0e9           # cycles a second of torch.cuda._sleep (at most)
+ALONE_SPIN_MS = 0.5       # card spin ahead of each K3 / K4 frame timed alone
 # fp32 operations of one triangle in K2: pixel coordinates 24, edges 27
 # (an FMA counts two), det 5, the cull sign 9, the z bias 6, 18 plane
 # columns of 5, the den plane 6, the id 1, the box 24, comparisons 15
 K2_OPS_PER_TRI = 207
-# K2's launches by path, each counted from 0 around the path's run
+# fp32 operations of one triangle in K3: for each of its 3 vertices, x
+# and z 3 each (an FMA counts two), the 4 clip channels 6 each, y 1
+K3_OPS_PER_TRI = 93
+# K2's, K3's and K4's launches by path, each counted from 0 around the
+# path's run
 K2_BY_PATH = collections.Counter()
+K3_BY_PATH = collections.Counter()
+K4_BY_PATH = collections.Counter()
 
 
 def phase(name: str):
@@ -180,13 +208,19 @@ def card_line() -> str:
 
 
 @contextlib.contextmanager
-def k2_path(path: str):
-    """Count K2's launches while the block drives ``path``: its count set
-    to 0 just before, read just after, added to ``K2_BY_PATH[path]``."""
+def kernel_path(path: str):
+    """Count K2's, K3's and K4's launches while the block drives
+    ``path``: each count set to 0 just before, read just after, added to
+    ``K2_BY_PATH[path]``, ``K3_BY_PATH[path]`` and ``K4_BY_PATH[path]``."""
     from myrenderer_tpu_torch.ops.setup_pack import K2
-    K2.launches = 0
+    from myrenderer_tpu_torch.ops.straddlers import K4
+    from myrenderer_tpu_torch.ops.terrain_vertex import K3
+    counted = ((K2, K2_BY_PATH), (K3, K3_BY_PATH), (K4, K4_BY_PATH))
+    for kernel, _ in counted:
+        kernel.launches = 0
     yield
-    K2_BY_PATH[path] += K2.launches
+    for kernel, by_path in counted:
+        by_path[path] += kernel.launches
 
 
 def batches(app) -> int:
@@ -268,14 +302,17 @@ def tile_stats(inputs, label):
     return stats
 
 
-def time_cold(fn, n: int, flush) -> float:
+def time_cold(fn, n: int, flush, spin_ms: float = 0.0) -> float:
     """Median over ``n`` calls of each call's own device time (CUDA
     events around it), a write of ``flush`` before each call evicting the
     card's 50 MB L2 (and keeping the card busy while the call is
-    queued)."""
+    queued), then a spin of ``spin_ms`` on the card for a call whose
+    host side takes longer to queue than the write takes to run."""
     times = []
     for _ in range(n):
         flush.zero_()
+        if spin_ms:
+            torch.cuda._sleep(int(spin_ms * 1e-3 * SPIN_HZ))
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -343,15 +380,15 @@ def time_in_turns(apps: dict, n: int, rounds: int = BAND_ROUNDS,
     """ms/frame of each app in ``apps`` {bands: app}: ``n`` fenced frames
     an app, the apps taking turns for ``rounds`` rounds. Returns each
     app's rounds and the K1 launches each made (counted from 0 just
-    before each of its turns); with ``path``, K2's go to
-    ``K2_BY_PATH[f"{path}_bands{bands}"]``."""
+    before each of its turns); with ``path``, K2's, K3's and K4's go to
+    their ``*_BY_PATH[f"{path}_bands{bands}"]``."""
     from myrenderer_tpu_torch.ops import raster_cuda as rk
     ms = {k: [] for k in apps}
     launches = dict.fromkeys(apps, 0)
     for _ in range(rounds):
         for k, app in apps.items():
             rk.K1.launches = 0
-            with (k2_path(f"{path}_bands{k}") if path
+            with (kernel_path(f"{path}_bands{k}") if path
                   else contextlib.nullcontext()):
                 ms[k].append(time_frames(app, n))
             launches[k] += rk.K1.launches
@@ -375,17 +412,18 @@ def report_turns(label, ms: dict, launches: dict, syncs: dict, n: int,
             f"{site} x{c}" for site, c in sorted(syncs[k].items())))
 
 
-def time_call(fn, n: int, head_start: bool = False) -> float:
+def time_call(fn, n: int, head_start: bool = False,
+              spin_ms: float = 0.1) -> float:
     """Device ms per call over ``n`` back-to-back calls of ``fn``.
-    ``head_start`` first queues a spin of 0.1 ms a call on the card, so
-    the host has queued every call before the card reaches the first: a
-    slow host then cannot leave the card idle between short kernels."""
+    ``head_start`` first queues a spin of ``spin_ms`` a call on the card,
+    so the host has queued every call before the card reaches the first:
+    a slow host then cannot leave the card idle between short kernels."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     fn()
     torch.cuda.synchronize()
     if head_start:
-        torch.cuda._sleep(int(n * 0.1e-3 * SPIN_HZ))
+        torch.cuda._sleep(int(n * spin_ms * 1e-3 * SPIN_HZ))
     start.record()
     for _ in range(n):
         fn()
@@ -772,8 +810,9 @@ def bands_over_cards(single, single_frames, cards):
 def graph_against_eager(make_app, frames: int, label: str, path: str):
     """``frames`` frames of a graph app and an eager app built alike,
     framebuffers and winners bit-equal after every frame, K1 launched
-    bands-many times a frame by each; the graph app's K2 launches go to
-    ``K2_BY_PATH[path]``. Returns (graph app, eager app)."""
+    bands-many times a frame by each; the graph app's K2, K3 and K4
+    launches go to their ``*_BY_PATH[path]``. Returns (graph app, eager
+    app)."""
     from myrenderer_tpu_torch.ops import raster_cuda as rk
     apps = {"graph": make_app(), "eager": make_app()}
     apps["eager"].draw._eager_frames = True
@@ -783,7 +822,7 @@ def graph_against_eager(make_app, frames: int, label: str, path: str):
     for frame in range(1, frames + 1):
         for mode, app in apps.items():
             rk.K1.launches = 0
-            with k2_path(path if mode == "graph" else f"{path} (eager)"):
+            with kernel_path(path if mode == "graph" else f"{path} (eager)"):
                 app.tick()
             launches[mode] += rk.K1.launches
         frames_equal(apps["graph"], apps["eager"], label, frame)
@@ -1171,7 +1210,7 @@ def behaviour_scenes(card: str) -> dict:
         for k in range(SCENE_FRAMES):
             for mode, sc in modes.items():
                 rk.K1.launches = 0
-                with k2_path("behaviour_scenes" if mode == "graph"
+                with kernel_path("behaviour_scenes" if mode == "graph"
                              else f"behaviour_scenes ({mode})"):
                     sc.step(k)
                 if mode == "graph":
@@ -1491,6 +1530,222 @@ def k2_phase(dev, card: str, flush) -> dict:
             "random_batches": len(combos)}
 
 
+@contextlib.contextmanager
+def record_calls(module, name: str, store: list):
+    """Record the arguments of every call of ``module.<name>`` while the
+    block runs (each call still runs), bound to its parameter names."""
+    import inspect
+    orig = getattr(module, name)
+    sig = inspect.signature(orig)
+
+    def wrapped(*args, **kw):
+        call = sig.bind(*args, **kw)
+        call.apply_defaults()
+        store.append(dict(call.arguments))
+        return orig(*args, **kw)
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def against_plain(got, want):
+    """(values whose bits differ, the largest finite difference) of the
+    tensors ``got`` against ``want``, pair by pair."""
+    bad, err = 0, 0.0
+    for a, b in zip(got, want):
+        if a.is_floating_point():
+            differ = a.view(torch.int32) != b.view(torch.int32)
+            both = torch.isfinite(a) & torch.isfinite(b)
+            if bool(both.any()):
+                err = max(err, float((a[both] - b[both]).abs().max()))
+        else:
+            differ = a != b
+        bad += int(differ.sum())
+    return bad, err
+
+
+def k3_check(call):
+    """K3 and its plain version on one call's inputs: (values that
+    differ, the largest finite difference)."""
+    from myrenderer_tpu_torch.ops import terrain_vertex as tv
+    launches = tv.K3.launches
+    got = tv.K3(**call)
+    tv.K3.launches = launches
+    want = tv.terrain_vertex_reference(**call)
+    torch.cuda.synchronize()
+    return against_plain(got[:3], want[:3])
+
+
+def k4_check(call):
+    """K4 and its plain version on one call's inputs: (values that
+    differ, the largest finite difference)."""
+    from myrenderer_tpu_torch.ops import raster_common as rc
+    from myrenderer_tpu_torch.ops import straddlers as st
+    launches = st.K4.launches
+    got = st.K4(**call)
+    st.K4.launches = launches
+    want = rc.select_straddlers_reference(**call)
+    torch.cuda.synchronize()
+    return against_plain(got, want)
+
+
+def k3_bound(calls):
+    """K3's bound over ``calls``: (ms, "bytes" or "operations", bytes).
+    Each instance's heights (4 bytes a quad), data transform and world
+    matrix (128 bytes) are read once; each triangle's clip rows, varying
+    rows and id (100 bytes) written once; K3_OPS_PER_TRI fp32 operations
+    a triangle."""
+    tris = sum(2 * c["heights"].numel() for c in calls)
+    nbytes = sum(4 * c["heights"].numel() + 128 * c["heights"].shape[0]
+                 + 100 * 2 * c["heights"].numel() for c in calls)
+    ms_bytes = nbytes / 3.35e12 * 1e3
+    ms_ops = K3_OPS_PER_TRI * tris / 67e12 * 1e3
+    return ((ms_bytes, "bytes", nbytes) if ms_bytes >= ms_ops
+            else (ms_ops, "operations", nbytes))
+
+
+def k4_bound(calls):
+    """K4's bound over ``calls``: (ms, "bytes", bytes). Each triangle's
+    three w lanes lie 16 bytes apart in its 48-byte clip row, so every
+    32-byte sector of the rows holds one: 48 bytes a triangle, with its
+    valid flag 49. Then the rows this call's data selects (its first
+    ``cap`` straddlers, and row T - 1 where slots are left) are read
+    once, and the appendee block, ``sel`` and the flag written once. The
+    comparisons (six a triangle) are far under the bytes."""
+    nbytes = 0
+    for c in calls:
+        T, C, cap = c["tri_clip"].shape[0], c["tri_vary"].shape[-1], c["cap"]
+        w = c["tri_clip"][..., 3]
+        n = int((c["valid"] & (w > 1e-6).any(-1) & (w <= 1e-6).any(-1))
+                .sum())
+        row = 48 + 12 * C
+        nbytes += (49 * T + (min(n, cap) + (n < cap)) * row
+                   + 2 * cap * (row + 1) + 4 * cap + 1)
+    return nbytes / 3.35e12 * 1e3, "bytes", nbytes
+
+
+def time_alone(name, kernel, plain, calls, flush, bound, label, card):
+    """``kernel`` alone over one frame's ``calls`` (its launches a frame)
+    beside ``plain`` (plain, kernel, kernel, plain), then frame by frame
+    with the L2 flushed; the timing launches are taken back out of the
+    kernel's count."""
+    def kernel_frame():
+        for c in calls:
+            kernel(**c)
+
+    def plain_frame():
+        for c in calls:
+            plain(**c)
+
+    launches = kernel.launches
+    kernel_frame()
+    per_frame = kernel.launches - launches
+    p1 = time_call(plain_frame, 5)
+    # the host queues a K4 call (its outputs, a ctypes call) in about as
+    # long as the card runs it: spin ALONE_SPIN_MS a frame ahead of it
+    k_a = time_call(kernel_frame, 100, head_start=True,
+                    spin_ms=ALONE_SPIN_MS)
+    k_b = time_call(kernel_frame, 100, head_start=True,
+                    spin_ms=ALONE_SPIN_MS)
+    cold = time_cold(kernel_frame, 50, flush, spin_ms=ALONE_SPIN_MS)
+    kernel.launches = launches
+    p2 = time_call(plain_frame, 5)
+    ms, plain_ms = min(k_a, k_b), min(p1, p2)
+    bound_ms, bound_by, nbytes = bound(calls)
+    print(f"  {name} at {label} ({len(calls)} calls, {per_frame} launches "
+          f"a frame, {nbytes} "
+          f"bytes): {ms:.4f} ms a frame (runs {k_a:.4f}, {k_b:.4f}); bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {100.0 * bound_ms / ms:.1f} % "
+          f"of it; frame by frame with the L2 flushed (median of 50): "
+          f"{cold:.4f} ms ({100.0 * bound_ms / cold:.1f} %); plain version "
+          f"{plain_ms:.3f} ms (runs {p1:.3f}, {p2:.3f}); card: {card}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "cold_ms": cold, "bytes": nbytes,
+            "calls_a_frame": len(calls), "launches_a_frame": per_frame}
+
+
+def k3_k4_phase(dev, card: str, flush) -> dict:
+    """Phase 15: K3 and K4 against their plain versions, bit for bit, on
+    random inputs and on every call of the 1080p demo's and the 4K stress
+    scene's frame 1; each alone at those calls' shapes."""
+    from myrenderer_tpu_torch.app.demo import DemoApp
+    from myrenderer_tpu_torch.app.stress import StressApp
+    from myrenderer_tpu_torch.ops import raster_common as rc
+    from myrenderer_tpu_torch.ops import straddlers as st
+    from myrenderer_tpu_torch.ops import terrain_vertex as tv
+    from myrenderer_tpu_torch.utils.trisets import (
+        STRADDLER_CASES, straddler_batch, straddler_case, terrain_inputs)
+    err = {"K3": 0.0, "K4": 0.0}
+
+    def held(name, check, call, label):
+        bad, e = check(call)
+        print(f"  {name} {label}: {bad} values differ")
+        if bad:
+            raise AssertionError(f"{name} differs from its plain version "
+                                 f"({label})")
+        err[name] = max(err[name], e)
+
+    for size, instances in ((100, 1), (708, 1), (37, 3)):
+        h, u, w = (torch.from_numpy(a).to(dev)
+                   for a in terrain_inputs(size, instances, size))
+        held("K3", k3_check, {"heights": h, "uniforms": u, "worlds": w,
+                              "size": size},
+             f"random terrain, size {size}, {instances} instance(s) (heights "
+             f"with 0, 1 and subnormals, random worlds)")
+    cases = {name: straddler_case(name) for name in STRADDLER_CASES}
+    for name, (n, kw, cap) in {
+            "T = 1,002,528, none": (0, {}, 128),
+            "T = 1,002,528, 77 and NaN rows": (77, {"nan_rows": 40}, 128),
+            "T = 1,002,528, cap + 1 and invalid": (129, {"invalid": 30},
+                                                   128),
+            "T = 1,002,528, 5,000 under cap 32,768": (5000, {}, 32768)
+    }.items():
+        cases[name] = (*straddler_batch(1_002_528, n + 11, n, **kw), cap)
+    for name, (clip, vary, valid, cap) in cases.items():
+        clip, vary, valid = (torch.from_numpy(a).to(dev)
+                             for a in (clip, vary, valid))
+        held("K4", k4_check, {"tri_clip": clip, "tri_vary": vary,
+                              "valid": valid, "cap": cap},
+             f"random batch {name} (T {clip.shape[0]}, cap {cap})")
+    del cases
+    shapes = {"K3": {}, "K4": {}}
+    for cell, make in (("demo_1080p", lambda: DemoApp(1920, 1080,
+                                                       device="cuda")),
+                       ("stress_4k", lambda: StressApp(device="cuda"))):
+        app = make()
+        app.draw._eager_frames = True
+        k3_calls, k4_calls = [], []
+        with record_calls(tv, "terrain_vertex", k3_calls), \
+                record_calls(rc, "select_straddlers", k4_calls):
+            app.tick()
+        assert_no_flags(app, f"{cell} frame 1 (K3's and K4's calls)")
+        if not (k3_calls and k4_calls):
+            raise AssertionError(f"{cell} frame 1 made no K3 or K4 call")
+        for c in k3_calls:
+            held("K3", k3_check, c, f"{cell} frame 1, terrain size "
+                 f"{c['size']}, {c['heights'].shape[0]} instance(s)")
+        for c in k4_calls:
+            held("K4", k4_check, c, f"{cell} frame 1, batch of "
+                 f"{c['tri_clip'].shape[0]} triangles, cap {c['cap']}")
+        shapes["K3"][cell] = time_alone(
+            "K3", tv.K3, tv.terrain_vertex_reference, k3_calls, flush,
+            k3_bound, f"{cell} frame-1 calls", card)
+        shapes["K4"][cell] = time_alone(
+            "K4", st.K4, rc.select_straddlers_reference, k4_calls, flush,
+            k4_bound, f"{cell} frame-1 calls", card)
+        del app, k3_calls, k4_calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, by_path in (("K3", K3_BY_PATH), ("K4", K4_BY_PATH)):
+        print(f"  {name} launches by path (each counted from 0 around it): "
+              f"{ {k: v for k, v in by_path.items() if '(' not in k} }; "
+              f"card: {card}")
+    return {"max_abs_err": err, "shapes": shapes}
+
+
 def main() -> int:
     phase("1 environment")
     if not torch.cuda.is_available():
@@ -1507,15 +1762,18 @@ def main() -> int:
           f"card: {card}")
     dev = torch.device("cuda", 0)
 
-    phase("2 build K1 and K2")
+    phase("2 build K1, K2, K3 and K4")
     from myrenderer_tpu_torch.ops import setup_pack as sp
+    from myrenderer_tpu_torch.ops import straddlers as st
+    from myrenderer_tpu_torch.ops import terrain_vertex as tv
+    kernels = {"K1": rk.K1, "K2": sp.K2, "K3": tv.K3, "K4": st.K4}
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda k: k.build(), (rk.K1, sp.K2)))
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda k: k.build(), kernels.values()))
     print(f"  built in {time.perf_counter() - t0:.3f} s (nvcc, started "
-          f"together: K1 {rk.K1.build_seconds:.3f} s, K2 "
-          f"{sp.K2.build_seconds:.3f} s)")
-    for name, kernel in (("K1", rk.K1), ("K2", sp.K2)):
+          f"together: " + ", ".join(f"{name} {k.build_seconds:.3f} s"
+                                   for name, k in kernels.items()) + ")")
+    for name, kernel in kernels.items():
         for line in kernel.build_log.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas {name}:", line.strip())
@@ -1594,7 +1852,7 @@ def main() -> int:
         plain.tick()
         plain_ms_a = time_frames(plain, PLAIN_FRAMES)
     rk.K1.launches = 0
-    with k2_path("demo_1080p"):
+    with kernel_path("demo_1080p"):
         ms = time_frames(app, TIMED_FRAMES)
     path_launches = rk.K1.launches
     with plain_k1():
@@ -1618,7 +1876,8 @@ def main() -> int:
     assert_no_flags(plain, "demo 1920x1080, plain path")
     print(f"  K1 path (CUDA graph replay): {ms:.3f} ms/frame over "
           f"{TIMED_FRAMES} frames, {path_launches} K1 launches, "
-          f"{K2_BY_PATH['demo_1080p']} K2 launches; "
+          f"{K2_BY_PATH['demo_1080p']} K2 launches, "
+          f"{K3_BY_PATH['demo_1080p']} K3, {K4_BY_PATH['demo_1080p']} K4; "
           f"plain-version path (eager): {plain_ms:.3f} ms/frame "
           f"({plain_ms_a:.3f}, {plain_ms_b:.3f}); card: {card}")
 
@@ -1673,7 +1932,7 @@ def main() -> int:
         stress.tick()
     fb_k1 = stress.window.framebuffer.clone()
     rk.K1.launches = 0
-    with k2_path("stress_4k"):
+    with kernel_path("stress_4k"):
         stress_ms = time_frames(stress, STRESS_FRAMES)
     stress_launches = rk.K1.launches
     if stress_launches != STRESS_FRAMES:
@@ -1701,7 +1960,8 @@ def main() -> int:
           f"{STRESS_FRAMES} frames "
           f"({stress.triangles / stress_ms / 1e3:.2f} Mtri/s), "
           f"{stress_launches} K1 launches, {K2_BY_PATH['stress_4k']} K2 "
-          f"launches; plain-version path: "
+          f"launches, {K3_BY_PATH['stress_4k']} K3, "
+          f"{K4_BY_PATH['stress_4k']} K4; plain-version path: "
           f"{stress_plain_ms:.3f} ms/frame over {STRESS_PLAIN_FRAMES} "
           f"frames, last frame bit-equal to the K1 path's; card: {card}")
     shapes["stress_4k"] = time_k1(s_inputs, 50, 2,
@@ -1757,7 +2017,7 @@ def main() -> int:
     phase("7 the sequential frame path on the card")
     frames = {d: sequential_scene(d) for d in ("cuda", "cpu")}
     rk.K1.launches = 0
-    with k2_path("sequential"):
+    with kernel_path("sequential"):
         fb_gpu, win_gpu = frames["cuda"]()
     seq_launches = rk.K1.launches
     fb_cpu, win_cpu = frames["cpu"]()
@@ -1775,7 +2035,7 @@ def main() -> int:
 
     phase("8 fragment-stage texture sampling through K1")
     rk.K1.launches = 0
-    with k2_path("textured"):
+    with kernel_path("textured"):
         assert_goldens_rule(textured_quad_frame("cuda"), "textured_128.png")
     tex_launches = rk.K1.launches
     if tex_launches != 1:
@@ -1788,7 +2048,7 @@ def main() -> int:
     app.draw._eager_frames = True       # its K1 inputs
     store, records = [], []
     rk.K1.launches = 0
-    with capture_k1_inputs(store, records), k2_path("demo_8k"):
+    with capture_k1_inputs(store, records), kernel_path("demo_8k"):
         app.tick()
     k8_launches = rk.K1.launches
     if k8_launches != 1 or len(store) != 1:
@@ -1904,7 +2164,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rk.K1.launches = 0
-    with k2_path("bench_smoke"):
+    with kernel_path("bench_smoke"):
         bench_launches, bench_row = bench_smoke()
     print(f"  bench_torch.py --smoke: {bench_row['metric']} "
           f"{bench_row['value']:.2f} fps, correct, {bench_launches} K1 "
@@ -1915,7 +2175,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     k2 = k2_phase(dev, card, flush)
 
-    phase("15 results")
+    phase("15 K3 and K4 against their plain versions on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    k34 = k3_k4_phase(dev, card, flush)
+
+    phase("16 results")
     by_path = {"demo_1080p": path_launches, "stress_4k": stress_launches,
                "sequential": seq_launches, "textured": tex_launches,
                "demo_8k": k8_launches,
@@ -1943,6 +2208,25 @@ def main() -> int:
                            "bench_smoke") if not k2_by_path.get(k)]
     if missing:
         raise AssertionError(f"K2 was not launched on {missing}")
+    # K3 on every path that draws a terrain, K4 on every path without a
+    # mesh (a mesh frame merges its shards' straddler candidates in torch)
+    k3_by_path = {k: v for k, v in K3_BY_PATH.items() if "(" not in k}
+    k4_by_path = {k: v for k, v in K4_BY_PATH.items() if "(" not in k}
+    terrain_paths = ("demo_1080p", "stress_4k", "demo_8k",
+                     "demo_1080p_bands1", "demo_1080p_bands4",
+                     "stress_4k_bands1", "stress_4k_bands4",
+                     "stress_4k_bands8", "demo_1080p_graph",
+                     "demo_1080p_bands4_graph", "stress_4k_graph",
+                     "stress_4k_bands4_graph", "bench_smoke")
+    single_paths = ("demo_1080p", "stress_4k", "sequential", "textured",
+                    "demo_8k", "demo_1080p_bands1", "stress_4k_bands1",
+                    "demo_1080p_graph", "stress_4k_graph",
+                    "behaviour_scenes", "bench_smoke")
+    for name, counts, paths in (("K3", k3_by_path, terrain_paths),
+                                ("K4", k4_by_path, single_paths)):
+        missing = [k for k in paths if not counts.get(k)]
+        if missing:
+            raise AssertionError(f"{name} was not launched on {missing}")
     print(json.dumps({"kernels": [{
         "name": "K1 raster_tile",
         "route": "cuda",
@@ -1997,6 +2281,44 @@ def main() -> int:
         "shapes": k2["shapes"],
         "random_batches": k2["random_batches"],
         "build_s": sp.K2.build_seconds,
+    }, {
+        "name": "K3 terrain_vertex",
+        "route": "cuda",
+        "source": "myrenderer_tpu_torch/csrc/terrain_vertex.cu",
+        # no Pallas kernel: the JAX package's whole-stream terrain vertex
+        # function, which XLA fuses
+        "replaces": "myrenderer_tpu/content/terrain.py:84",
+        "launches": sum(k3_by_path.values()),
+        "launches_by_path": k3_by_path,
+        "max_abs_err": k34["max_abs_err"]["K3"],
+        # the main path's shapes (the 1080p demo's frame 1); the stress
+        # frame's under "shapes"
+        "ms": k34["shapes"]["K3"]["demo_1080p"]["ms"],
+        "plain_ms": k34["shapes"]["K3"]["demo_1080p"]["plain_ms"],
+        "bound_ms": k34["shapes"]["K3"]["demo_1080p"]["bound_ms"],
+        "bound_by": k34["shapes"]["K3"]["demo_1080p"]["bound_by"],
+        "library_ms": None,       # no PyTorch call computes K3's function
+        "shapes": k34["shapes"]["K3"],
+        "build_s": tv.K3.build_seconds,
+    }, {
+        "name": "K4 straddlers",
+        "route": "cuda",
+        "source": "myrenderer_tpu_torch/csrc/straddlers.cu",
+        # no Pallas kernel: the JAX package's select_straddlers, which XLA
+        # fuses
+        "replaces": "myrenderer_tpu/ops/raster_common.py:347",
+        "launches": sum(k4_by_path.values()),
+        "launches_by_path": k4_by_path,
+        "max_abs_err": k34["max_abs_err"]["K4"],
+        # the main path's shapes (the 1080p demo's frame 1: its 2 batches);
+        # the stress frame's under "shapes"
+        "ms": k34["shapes"]["K4"]["demo_1080p"]["ms"],
+        "plain_ms": k34["shapes"]["K4"]["demo_1080p"]["plain_ms"],
+        "bound_ms": k34["shapes"]["K4"]["demo_1080p"]["bound_ms"],
+        "bound_by": k34["shapes"]["K4"]["demo_1080p"]["bound_by"],
+        "library_ms": None,       # no PyTorch call computes K4's function
+        "shapes": k34["shapes"]["K4"],
+        "build_s": st.K4.build_seconds,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

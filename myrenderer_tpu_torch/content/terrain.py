@@ -5,7 +5,7 @@ buffer — the vertex function synthesizes 6 vertices per heightmap quad
 from ``vertex_index`` alone (``Terrain.zig:21-50``), reading heights from
 a storage binding. Here that is a vectorized index computation: the
 per-vertex function under ``vmap``, or the whole-stream function the
-frame uses.
+frame uses (``ops/terrain_vertex.py``: K3 on a card).
 
 Shader-for-shader correspondence (``Terrain.zig:21-78``):
   vertex_at  = vi % 6 ; quad_at = vi / 6
@@ -32,29 +32,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import raster_common as rc
+from ..ops import terrain_vertex as tv
 from ..ops.raster_common import fma
-from ..ops.vertex_stage import matmul4, matvec4, per_device
+from ..ops.terrain_vertex import LOOKUP_COL, LOOKUP_ROW, QUAD_VALS, offset
+from ..ops.vertex_stage import matvec4, per_device
 from ..renderer import (Binding, BindingLayout, Instance, Pipeline,
                         SceneNode, VertexBuffer)
 from ..renderer.pipeline import (BUILTIN_TRANSFORM, MANAGED_STORAGE,
                                  MANAGED_UNIFORM)
 from ..utils.png import load_grayscale16
-
-# (x, z) corner offsets for the 6 vertices of a quad (Terrain.zig:28-35)
-_QUAD_VALS = np.array([[1.0, 0.0], [0.0, 0.0], [1.0, 1.0],
-                       [1.0, 1.0], [0.0, 0.0], [0.0, 1.0]], np.float32)
-# heightmap index offsets per corner, in units of (size, 1)
-# (Terrain.zig:38-45): [quad+size, quad, quad+size+1, quad+size+1, quad,
-# quad+1]
-_LOOKUP_ROW = np.array([1, 0, 1, 1, 0, 0], np.int32)   # multiples of size
-_LOOKUP_COL = np.array([0, 0, 1, 1, 0, 1], np.int32)   # +1 offsets
-
-
-def _offset(size: int, device) -> torch.Tensor:
-    """``0.1 * size`` rounded to f32, as the reference computes it, on
-    ``device``."""
-    return (torch.tensor(0.1, dtype=torch.float32) * float(size)).to(device)
 
 
 def _make_vertex_fn(size: int, device):
@@ -65,11 +51,11 @@ def _make_vertex_fn(size: int, device):
     max_idx = size * size - 1
 
     def make(dev):
-        return (torch.from_numpy(_QUAD_VALS).to(dev),
-                torch.from_numpy(_LOOKUP_ROW).to(dev),
-                torch.from_numpy(_LOOKUP_COL).to(dev),
+        return (torch.from_numpy(QUAD_VALS).to(dev),
+                torch.from_numpy(LOOKUP_ROW).to(dev),
+                torch.from_numpy(LOOKUP_COL).to(dev),
                 torch.tensor(0.2, dtype=torch.float32).to(dev),
-                -_offset(size, dev))
+                -offset(size, dev))
 
     consts = per_device(make, device)
 
@@ -100,68 +86,21 @@ def _make_vertex_fn(size: int, device):
 
 def _make_vertex_batch_fn(size: int, device):
     """Whole-stream formulation of the terrain vertex shader (the path
-    the frame takes). The terrain is a regular grid, so the per-vertex
-    heightmap gathers become four shifted views of the flat height array
-    (extended with copies of its last element: the robust-buffer-access
-    clamp of the reference's out-of-bounds ``quad + size + 1`` lookups).
-    Its constants are made once per device, as the per-vertex
-    function's are.
+    the frame takes): every triangle of the batch's instances from their
+    heights (binding 1), data transforms (binding 0) and world matrices,
+    by :func:`ops.terrain_vertex.terrain_vertex` on the device of its
+    inputs: K3 on a card, its plain version on the CPU. ``device`` (the
+    renderer's) is taken for the per-vertex function's signature; the
+    function makes no constants.
 
     Triangles go out in the JAX package's array order: per instance, the
     first triangle of every quad, then the second one. ``ids`` carries
     the submission ranks (2q and 2q+1 for quad q, ``Terrain.zig:126``),
     so winner ids and depth ties are those of submission order."""
-    s2 = size * size
-    consts = per_device(lambda dev: (
-        torch.tensor(0.2, dtype=torch.float32).to(dev),
-        -_offset(size, dev)), device)
 
     def vertex_batch_fn(ctx):
-        dev = ctx.worlds.device
-        c02, noff = consts(dev)
-        n_inst = ctx.worlds.shape[0]
-        quad = torch.arange(s2, dtype=torch.int32, device=dev)
-        qx = (quad // size).float()
-        qz = (quad % size).float()
-        # ``0.2 * (corner + q) - 0.1 * size`` contracts to
-        # fma(0.2, corner + q, -(0.1 * size))
-        xs = [fma(c02, float(_QUAD_VALS[s, 0]) + qx, noff)
-              for s in range(6)]
-        zs = [fma(c02, float(_QUAD_VALS[s, 1]) + qz, noff)
-              for s in range(6)]
-        ones = torch.ones(s2, dtype=torch.float32, device=dev)
-
-        clips, varys, ids = [], [], []
-        for i in range(n_inst):
-            hm = ctx.binding(1)[i]
-            uniform = ctx.binding(0)[i]
-            hm_ext = torch.cat([hm, hm[-1:].expand(size + 1)])
-            c_q = hm_ext[0:s2]
-            c_qs = hm_ext[size:s2 + size]
-            c_qs1 = hm_ext[size + 1:s2 + size + 1]
-            c_q1 = hm_ext[1:s2 + 1]
-            # per _LOOKUP tables: [q+size, q, q+size+1, q+size+1, q, q+1]
-            hs = (c_qs, c_q, c_qs1, c_qs1, c_q, c_q1)
-            ys = [5.0 * h for h in hs]
-            m = matmul4(ctx.worlds[i], uniform[:16].reshape(4, 4))
-            # clip channel ch of slot s: ((m0*x + m1*y) + m2*z) + m3 with
-            # y = 5*h. The reference's compiler folds m1*(5*h) into
-            # (m1*5)*h and contracts the rest, giving
-            # fma(m2, z, fma(m0, x, (m1*5)*h)) + m3
-            slot_clip = [torch.stack(
-                [fma(m[ch, 2], zs[s],
-                     fma(m[ch, 0], xs[s], (m[ch, 1] * 5.0) * hs[s]))
-                 + m[ch, 3] for ch in range(4)], -1)
-                for s in range(6)]                              # [s2, 4]
-            slot_vary = [torch.stack([ys[s], ys[s], ys[s], ones], -1)
-                         for s in range(6)]
-            for h in (0, 3):
-                clips.append(torch.stack(slot_clip[h:h + 3], 1))
-                varys.append(torch.stack(slot_vary[h:h + 3], 1))
-            ids.append(2 * quad + 2 * s2 * i)
-            ids.append(2 * quad + 1 + 2 * s2 * i)
-        return rc.Triangles(torch.cat(clips), torch.cat(varys),
-                            torch.cat(ids), planar=True)
+        return tv.terrain_vertex(ctx.binding(1), ctx.binding(0), ctx.worlds,
+                                 size)
 
     return vertex_batch_fn
 

@@ -27,6 +27,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import straddlers
+
 # Minimum clip-space w for a triangle to be rasterized.
 W_EPS = 1e-6
 
@@ -272,10 +274,28 @@ def select_straddlers(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
     """Extract up to ``cap`` eye-plane straddlers (a vertex at
     w <= W_EPS while another is in front: the set triangle_setup's w
     test drops), in array order, and clip each into <= 2 triangles.
+    Shapes are fixed and nothing is read back to the host. Returns
+    (app_clip [2cap, 3, 4], app_vary [2cap, 3, C], app_valid bool[2cap],
+    sel i32[cap], overflow bool[]), as
+    :func:`select_straddlers_reference` describes them, bit for bit.
+
+    CUDA tensors launch K4 (``ops/straddlers.py``, two launches, no
+    sort); CPU tensors run :func:`select_straddlers_reference`. T must be
+    at least 1."""
+    straddlers.check(tri_clip, tri_vary, valid, cap)
+    if tri_clip.device.type == "cpu":
+        return select_straddlers_reference(tri_clip, tri_vary, valid, cap)
+    return straddlers.K4(tri_clip, tri_vary, valid, cap)
+
+
+def select_straddlers_reference(tri_clip: torch.Tensor,
+                                tri_vary: torch.Tensor, valid: torch.Tensor,
+                                cap: int):
+    """The plain PyTorch version of K4, same arguments and results, on
+    any device.
 
     The selection is the reference's static one: sort
-    ``where(straddle, arange(T), T)`` and keep the first ``cap``, so the
-    shapes are fixed and nothing is read back to the host. Returns
+    ``where(straddle, arange(T), T)`` and keep the first ``cap``. Returns
     (app_clip [2cap, 3, 4], app_vary [2cap, 3, C], app_valid bool[2cap],
     sel i32[cap], overflow bool[]): the appendee block, laid out as the
     reference lays it out (first triangles of all slots, then second

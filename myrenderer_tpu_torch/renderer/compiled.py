@@ -25,7 +25,7 @@ and their device overflow flags give the frame.
   included) runs at capture only; replays run the recorded kernels.
   Python-side values read by a vertex function are baked in, as
   ``jax.jit`` bakes them into its trace.
-- **Launch counting.** The launches of the port's kernels (K1, K2)
+- **Launch counting.** The launches of the port's kernels (K1-K4)
   recorded in the graph are taken back out of their counts at capture
   (nothing ran) and added at each replay.
 - **A mesh frame** (:class:`CompiledMeshFrame`) is one program across
@@ -54,11 +54,13 @@ import torch
 
 from ..ops.raster_cuda import K1
 from ..ops.setup_pack import K2
+from ..ops.straddlers import K4
+from ..ops.terrain_vertex import K3
 from ..parallel.sharding import all_gather, leaves, tree_map
 
 
 # the kernels whose launches a replay counts
-KERNELS = (K1, K2)
+KERNELS = (K1, K2, K3, K4)
 
 
 @contextlib.contextmanager

@@ -224,7 +224,8 @@ def assert_no_flags(app, label):
 GROUPS = (("torch.cat copies", "CatArrayBatchedCopy"),
           ("elementwise kernels", "elementwise_kernel"),
           ("gathers", "gather"), ("K1", "raster_tile_kernel"),
-          ("K2", "setup_pack_kernel"),
+          ("K2", "setup_pack_kernel"), ("K3", "terrain_vertex_kernel"),
+          ("K4", "straddle_"),
           ("host-to-device copies", "Memcpy HtoD"))
 # the sorts of binning and of the straddler selection (cub's radix
 # sorts, torch's in-place sorts of short rows)

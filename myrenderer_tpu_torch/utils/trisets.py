@@ -1,4 +1,5 @@
-"""Triangle sets for K1's and K2's checks, made with numpy from a seed:
+"""Triangle sets and inputs for the kernels' checks (K1-K4), made with
+numpy from a seed:
 the CPU parity tests (``tests/test_torch_*.py``) and ``chip_smoke.py`` on
 the card draw the same sets from here. Imports numpy only."""
 
@@ -119,3 +120,86 @@ def setup_batch(n, seed):
     valid = rng.uniform(size=n) < 0.9
     ids = rng.permutation(n).astype(np.int32)
     return clip, vary, valid, ids
+
+
+# a straddler's vertices, by kind: "in" above W_EPS, "out" at or below it
+# (w <= W_EPS), "nan" neither
+STRADDLER_KINDS = {"one_in": ("in", "out", "out"),
+                   "two_in": ("in", "in", "out"),
+                   "nan": ("in", "out", "nan")}
+
+
+# the straddler selection's cases: name -> (T, straddlers, cap,
+# straddler_batch keywords); the CPU tests and chip_smoke.py run each
+STRADDLER_CASES = {
+    "none": (600, 0, 128, {}),
+    "one_in": (600, 1, 128, {"kinds": ("one_in",)}),
+    "two_in": (600, 1, 128, {"kinds": ("two_in",)}),
+    "exactly_cap": (700, 32, 32, {}),
+    "cap_plus_one": (700, 33, 32, {}),
+    "fewer_triangles_than_cap": (40, 9, 128, {}),
+    "one_triangle": (1, 1, 8, {}),
+    "w_at_w_eps_and_nan": (900, 60, 128, {"kinds": ("nan", "one_in"),
+                                          "nan_rows": 25}),
+    "invalid_among_straddlers": (900, 50, 64, {"invalid": 40}),
+}
+
+
+def straddler_case(name):
+    """(clip, vary, valid, cap) of ``STRADDLER_CASES[name]``, seeded by
+    the name."""
+    T, n, cap, kw = STRADDLER_CASES[name]
+    clip, vary, valid = straddler_batch(T, sum(map(ord, name)), n, **kw)
+    return clip, vary, valid, cap
+
+
+def straddler_batch(n, seed, straddlers, kinds=tuple(STRADDLER_KINDS),
+                    invalid=0, nan_rows=0):
+    """A batch for the straddler selection (K4): (clip f32[n, 3, 4], vary
+    f32[n, 3, 4], valid bool[n]) with exactly ``straddlers`` valid
+    eye-plane straddlers at random rows, each of a kind drawn from
+    ``kinds`` (``STRADDLER_KINDS``, its vertices in a random rotation),
+    plus ``invalid`` rows that would straddle but are not valid and
+    ``nan_rows`` rows whose three w lanes are NaN. Every other row lies
+    in front of the eye plane. Outside w values are drawn from W_EPS
+    itself, the float just below it, 0, -0, a subnormal and negatives;
+    inside ones from the float just above W_EPS, W_CLIP and positives."""
+    clip, vary = random_triangles(n, seed)
+    rng = np.random.default_rng(seed + 1)
+    valid = np.ones(n, bool)
+    rows = rng.permutation(n)[:straddlers + invalid + nan_rows]
+    out_w = np.asarray([W_EPS, np.nextafter(W_EPS, np.float32(0)), 0.0, -0.0,
+                        1e-40, -1e-3, -0.5, -2.0], np.float32)
+    in_w = np.asarray([np.nextafter(W_EPS, np.float32(1)), 8e-6, 0.01, 0.7,
+                       3.0], np.float32)
+    for j, row in enumerate(rows[:straddlers + invalid]):
+        kind = STRADDLER_KINDS[kinds[rng.integers(len(kinds))]]
+        turn = rng.integers(3)
+        for k in range(3):
+            lane = kind[(k + turn) % 3]
+            clip[row, k, 3] = (np.nan if lane == "nan" else
+                               rng.choice(in_w if lane == "in" else out_w))
+        valid[row] = j < straddlers
+    clip[rows[straddlers + invalid:], :, 3] = np.nan
+    return clip, vary, valid
+
+
+def terrain_inputs(size, instances, seed):
+    """Inputs of the terrain's whole-stream vertex function (K3):
+    heights f32[instances, size^2] in [0, 1] with exact 0s, 1s and
+    subnormals among them (where there are at least 3 heights); uniforms f32[instances, 17] (a random data
+    transform, then ``size``); worlds f32[instances, 4, 4] (random
+    perspective-like matrices)."""
+    rng = np.random.default_rng(seed)
+    s2 = size * size
+    heights = rng.uniform(0, 1, (instances, s2)).astype(np.float32)
+    # a fifth of the heights (at least 5, or all) take these in turn
+    special = np.asarray([0.0, 1.0, 1e-40, 3e-39, -0.0], np.float32)
+    pick = rng.permutation(heights.size)[:max(5, heights.size // 5)]
+    heights.flat[pick] = np.resize(special, pick.size)
+    uniforms = np.zeros((instances, 17), np.float32)
+    uniforms[:, :16] = (np.eye(4, dtype=np.float32).reshape(-1)
+                        + rng.normal(0, 0.3, (instances, 16)))
+    uniforms[:, 16] = size
+    worlds = rng.normal(0, 1, (instances, 4, 4)).astype(np.float32)
+    return heights, uniforms, worlds
