@@ -107,18 +107,24 @@ at the first failed phase:
    ``ops/terrain_vertex.py``) and K4 (the straddler selection,
    ``ops/straddlers.py``) against their plain PyTorch versions on the
    card, bit for bit in every value: K3 on random terrains of the demo's
-   size (100), the stress scene's (708) and three instances of size 37
-   with random worlds (heights with 0, 1 and subnormals); K4 on the CPU
-   tests' batches (``trisets.STRADDLER_CASES``: no straddler, one of each
-   kind, exactly cap and cap + 1, fewer triangles than cap, one triangle,
-   w at W_EPS and NaN, invalid rows among straddlers) and on four batches
-   of 1,002,528 triangles; both on every call of the 1080p demo's and the
-   4K stress scene's eager frame 1 (captured at ``terrain_vertex`` and
+   size (100), the stress scene's (708), three instances of size 37, one
+   of size 1 and three of size 7 with random worlds (heights with 0, 1
+   and subnormals); K4 on the CPU tests' batches
+   (``trisets.STRADDLER_CASES``: no straddler, one of each kind, exactly
+   cap and cap + 1, fewer triangles than cap, one triangle, w at W_EPS
+   and NaN, invalid rows among straddlers) and on four batches of
+   1,002,528 triangles; K4 as a CUDA graph of a frame's two calls,
+   replayed 60 times with its inputs rewritten in place
+   (``profiling.k4_graph_replays``: every replay bit-equal, the scratch
+   left zeroed); both on every call of the 1080p demo's and the 4K stress
+   scene's eager frame 1 (captured at ``terrain_vertex`` and
    ``select_straddlers``); each alone a frame's calls at a time (warm,
-   L2-flushed) beside its plain version and its bytes bound; their
-   launches on every path (counted from 0 around each path as K2's are):
-   K3 required on every path that draws a terrain, K4 on every path
-   without a mesh;
+   L2-flushed) beside its plain version and its bytes bound and share,
+   one launch a call, and K4 alone on the two straddler-heavy 1M batches
+   too; their launches on every path (counted from 0 around each path as
+   K2's are): K3 required on every path that draws a terrain, K4 on every
+   path without a mesh, one K4 launch a batch and frame on the demo and
+   stress paths;
 16. a JSON line of the kernels (K1-K4), the card line, and the last line
    {"ok": true, "device": {...}}.
 
@@ -162,8 +168,8 @@ import torch
 
 from myrenderer_tpu_torch.utils.profiling import (
     assert_no_flags, capture_k1_inputs, frames_equal, k1_bound,
-    oracle_frame, print_groups, profile_frames, sync_all, syncs_per_frame,
-    trimmed)
+    k4_graph_replays, oracle_frame, print_groups, profile_frames, sync_all,
+    syncs_per_frame, trimmed)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TIMED_FRAMES = 60
@@ -176,6 +182,7 @@ BAND_STRESS_FRAMES = 5    # stress frames a turn, banded and on one device
 BAND_ROUNDS = 3           # turns of each
 SPIN_HZ = 2.0e9           # cycles a second of torch.cuda._sleep (at most)
 ALONE_SPIN_MS = 0.5       # card spin ahead of each K3 / K4 frame timed alone
+K4_REPLAYS = 60           # replays of phase 15's K4 graph
 # fp32 operations of one triangle in K2: pixel coordinates 24, edges 27
 # (an FMA counts two), det 5, the cull sign 9, the z bias 6, 18 plane
 # columns of 5, the den plane 6, the id 1, the box 24, comparisons 15
@@ -225,7 +232,7 @@ def kernel_path(path: str):
 
 def batches(app) -> int:
     """Batches of ``app``'s frame plan (K2 launches twice for each on one
-    device: its triangles, its appendee block)."""
+    device: its triangles, its appendee block; K4 once)."""
     plan = next(iter(app.draw._plans.values()))
     return sum(len(b) for b in plan.surfaces)
 
@@ -1643,6 +1650,9 @@ def time_alone(name, kernel, plain, calls, flush, bound, label, card):
     launches = kernel.launches
     kernel_frame()
     per_frame = kernel.launches - launches
+    if per_frame != len(calls):
+        raise AssertionError(f"{name} launched {per_frame} times for "
+                             f"{len(calls)} calls")
     p1 = time_call(plain_frame, 5)
     # the host queues a K4 call (its outputs, a ctypes call) in about as
     # long as the card runs it: spin ALONE_SPIN_MS a frame ahead of it
@@ -1688,7 +1698,7 @@ def k3_k4_phase(dev, card: str, flush) -> dict:
                                  f"({label})")
         err[name] = max(err[name], e)
 
-    for size, instances in ((100, 1), (708, 1), (37, 3)):
+    for size, instances in ((100, 1), (708, 1), (37, 3), (1, 1), (7, 3)):
         h, u, w = (torch.from_numpy(a).to(dev)
                    for a in terrain_inputs(size, instances, size))
         held("K3", k3_check, {"heights": h, "uniforms": u, "worlds": w,
@@ -1704,13 +1714,24 @@ def k3_k4_phase(dev, card: str, flush) -> dict:
             "T = 1,002,528, 5,000 under cap 32,768": (5000, {}, 32768)
     }.items():
         cases[name] = (*straddler_batch(1_002_528, n + 11, n, **kw), cap)
+    heavy = []          # the straddler-heavy 1M batches, timed alone below
     for name, (clip, vary, valid, cap) in cases.items():
         clip, vary, valid = (torch.from_numpy(a).to(dev)
                              for a in (clip, vary, valid))
-        held("K4", k4_check, {"tri_clip": clip, "tri_vary": vary,
-                              "valid": valid, "cap": cap},
+        call = {"tri_clip": clip, "tri_vary": vary, "valid": valid,
+                "cap": cap}
+        held("K4", k4_check, call,
              f"random batch {name} (T {clip.shape[0]}, cap {cap})")
+        if name.endswith(("cap + 1 and invalid", "under cap 32,768")):
+            heavy.append((name, call))
     del cases
+    bad = k4_graph_replays(dev, replays=K4_REPLAYS)
+    print(f"  K4 as a CUDA graph of two calls (300,000 and 5,000 triangles, "
+          f"cap 64), {K4_REPLAYS} replays, inputs rewritten in place: {bad} "
+          f"values differ; scratch zeroed after; card: {card}")
+    if bad:
+        raise AssertionError("K4's graph replays differ from its plain "
+                             "version")
     shapes = {"K3": {}, "K4": {}}
     for cell, make in (("demo_1080p", lambda: DemoApp(1920, 1080,
                                                        device="cuda")),
@@ -1739,6 +1760,12 @@ def k3_k4_phase(dev, card: str, flush) -> dict:
         del app, k3_calls, k4_calls
         gc.collect()
         torch.cuda.empty_cache()
+    for name, call in heavy:
+        label = f"1M, {name.removeprefix('T = 1,002,528, ')}"
+        shapes["K4"][label] = time_alone(
+            "K4", st.K4, rc.select_straddlers_reference, [call], flush,
+            k4_bound, f"{name} (one call)", card)
+    del heavy
     for name, by_path in (("K3", K3_BY_PATH), ("K4", K4_BY_PATH)):
         print(f"  {name} launches by path (each counted from 0 around it): "
               f"{ {k: v for k, v in by_path.items() if '(' not in k} }; "
@@ -1864,6 +1891,9 @@ def main() -> int:
     if K2_BY_PATH["demo_1080p"] != 2 * batches(app) * TIMED_FRAMES:
         raise AssertionError(f"K2 launched {K2_BY_PATH['demo_1080p']} "
                              f"times in {TIMED_FRAMES} frames")
+    if K4_BY_PATH["demo_1080p"] != batches(app) * TIMED_FRAMES:
+        raise AssertionError(f"K4 launched {K4_BY_PATH['demo_1080p']} "
+                             f"times in {TIMED_FRAMES} frames")
     fb = app.window.framebuffer
     if fb.shape != (1080, 1920, 4) or not bool(torch.isfinite(fb).all()):
         raise AssertionError("1080p framebuffer is not finite f32[1080, "
@@ -1940,6 +1970,9 @@ def main() -> int:
                              f"{STRESS_FRAMES} stress frames")
     if K2_BY_PATH["stress_4k"] != 2 * batches(stress) * STRESS_FRAMES:
         raise AssertionError(f"K2 launched {K2_BY_PATH['stress_4k']} times "
+                             f"in {STRESS_FRAMES} stress frames")
+    if K4_BY_PATH["stress_4k"] != batches(stress) * STRESS_FRAMES:
+        raise AssertionError(f"K4 launched {K4_BY_PATH['stress_4k']} times "
                              f"in {STRESS_FRAMES} stress frames")
     fb = stress.window.framebuffer
     if fb.shape != (2160, 3840, 4) or not bool(torch.isfinite(fb).all()):

@@ -71,7 +71,8 @@ def _make_vertex_fn(size: int, device):
         xz = fma(c02, corner + quad_coords, noff)
         lookup = (quad_at + lookup_row[vertex_at] * size
                   + lookup_col[vertex_at])
-        h = ctx.binding(1)[torch.clamp(lookup, 0, max_idx)]
+        h = tv.flush_subnormals(ctx.binding(1)[torch.clamp(lookup, 0,
+                                                           max_idx)])
         uniform = ctx.binding(0)                        # f32[17]
         data_xform = uniform[:16].reshape(4, 4)
         y = 5.0 * h

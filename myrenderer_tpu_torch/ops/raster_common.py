@@ -279,7 +279,7 @@ def select_straddlers(tri_clip: torch.Tensor, tri_vary: torch.Tensor,
     sel i32[cap], overflow bool[]), as
     :func:`select_straddlers_reference` describes them, bit for bit.
 
-    CUDA tensors launch K4 (``ops/straddlers.py``, two launches, no
+    CUDA tensors launch K4 (``ops/straddlers.py``, one launch, no
     sort); CPU tensors run :func:`select_straddlers_reference`. T must be
     at least 1."""
     straddlers.check(tri_clip, tri_vary, valid, cap)

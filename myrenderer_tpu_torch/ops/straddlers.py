@@ -1,6 +1,6 @@
 """K4, the straddler selection: a batch's first ``cap`` eye-plane
-straddlers in array order, clipped into its appendee block, in two
-launches and with no sort.
+straddlers in array order, clipped into its appendee block, in one
+launch and with no sort.
 
 ``raster_common.select_straddlers`` launches it for CUDA tensors (and
 runs its plain version, ``raster_common.select_straddlers_reference``,
@@ -9,10 +9,22 @@ kernel (``csrc/straddlers.cu``) is built at first use like K1 and K2
 (``cuda_build.build_library``) and bound with ``ctypes``. It reads
 nothing back to the host, so a frame that runs it stays one CUDA graph
 replay.
+
+**Scratch.** The launch ranks its chunks through a ticket, a done
+counter and a status word a chunk in device memory. They must be zero
+when it starts, and its last block zeroes them again, so a scratch is
+zeroed once, when it is made, and never by a launch or a graph node.
+Two launches that run at once must not share one: a scratch belongs to
+one (device, stream) for eager calls, and to one CUDA graph for the
+calls captured into it (:func:`graph_scratch`, which
+``renderer/compiled.py`` opens around a frame's warm-up and capture). A
+graph captured outside it gets a scratch of its own a call, zeroed by a
+memset node of the graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 from typing import Optional
@@ -25,15 +37,19 @@ _SOURCE = os.path.join(CSRC, "straddlers.cu")
 
 
 class StraddlersKernel:
-    """The built K4 library and its launch count. ``launches`` grows by
-    one at each of the kernel's two launches (the count, then the
-    selection and clip) and nowhere else."""
+    """The built K4 library, its launch count and its scratch.
+    ``launches`` grows by one at each launch of the kernel and nowhere
+    else."""
 
     def __init__(self):
         self.launches = 0
         self.lib: Optional[ctypes.CDLL] = None
         self.build_seconds: Optional[float] = None
         self.build_log = ""
+        # zeroed scratch by (device index, stream handle) for eager calls;
+        # inside graph_scratch, its store's by device index
+        self._eager: dict = {}
+        self._graph: Optional[dict] = None
 
     def build(self) -> ctypes.CDLL:
         """Compile (once per source and flag set) and load the kernel."""
@@ -43,6 +59,8 @@ class StraddlersKernel:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.straddlers_blocks.argtypes = [i32]
         lib.straddlers_blocks.restype = i32
+        lib.straddlers_max_channels.argtypes = []
+        lib.straddlers_max_channels.restype = i32
         lib.straddlers_launch.argtypes = ([p, i64, i64, i64, p, i64, i64, i64,
                                            p, i64, i32, i32, i32]
                                           + [p] * 7)
@@ -50,37 +68,72 @@ class StraddlersKernel:
         self.lib = lib
         return lib
 
+    def scratch(self, dev: torch.device, words: int) -> torch.Tensor:
+        """``words`` zeroed 8-byte words for a launch on ``dev``'s current
+        stream (the module docstring says whose they are)."""
+        if self._graph is not None:
+            store, key = self._graph, dev.index
+        else:
+            store = self._eager
+            key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        have = store.get(key)
+        if have is not None and have.numel() >= words:
+            return have
+        if torch.cuda.is_current_stream_capturing():
+            # a new allocation inside a capture: the graph's memset zeroes
+            # it at each replay, and nothing outside the graph keeps it
+            return torch.zeros(words, dtype=torch.int64, device=dev)
+        have = torch.zeros(words, dtype=torch.int64, device=dev)
+        store[key] = have
+        return have
+
     def __call__(self, tri_clip, tri_vary, valid, cap: int):
         """``select_straddlers``' five results for CUDA tensors of T > 0
         triangles (checked by the caller)."""
         lib = self.build()
         T, C = tri_clip.shape[0], tri_vary.shape[-1]
+        if C > lib.straddlers_max_channels():
+            raise ValueError(f"K4 takes at most "
+                             f"{lib.straddlers_max_channels()} varying "
+                             f"channels, got {C}")
         dev = tri_clip.device
-        counts = torch.empty(lib.straddlers_blocks(T), dtype=torch.int32,
-                             device=dev)
-        app_clip = torch.empty((2 * cap, 3, 4), dtype=torch.float32,
-                               device=dev)
-        app_vary = torch.empty((2 * cap, 3, C), dtype=torch.float32,
-                               device=dev)
-        app_valid = torch.empty(2 * cap, dtype=torch.bool, device=dev)
-        sel = torch.empty(cap, dtype=torch.int32, device=dev)
-        overflow = torch.empty((), dtype=torch.bool, device=dev)
         with torch.cuda.device(dev):
+            scratch = self.scratch(dev, 2 + lib.straddlers_blocks(T))
+            app_clip = torch.empty((2 * cap, 3, 4), dtype=torch.float32,
+                                   device=dev)
+            app_vary = torch.empty((2 * cap, 3, C), dtype=torch.float32,
+                                   device=dev)
+            app_valid = torch.empty(2 * cap, dtype=torch.bool, device=dev)
+            sel = torch.empty(cap, dtype=torch.int32, device=dev)
+            overflow = torch.empty((), dtype=torch.bool, device=dev)
             handle = torch.cuda.current_stream().cuda_stream
             err = lib.straddlers_launch(
                 tri_clip.data_ptr(), *tri_clip.stride(),
                 tri_vary.data_ptr(), *tri_vary.stride(),
                 valid.data_ptr(), valid.stride(0), T, C, cap,
-                counts.data_ptr(), app_clip.data_ptr(), app_vary.data_ptr(),
+                scratch.data_ptr(), app_clip.data_ptr(), app_vary.data_ptr(),
                 app_valid.data_ptr(), sel.data_ptr(), overflow.data_ptr(),
                 handle)
         if err != 0:
             raise RuntimeError(f"K4 launch failed: CUDA error {err}")
-        self.launches += 2
+        self.launches += 1
         return app_clip, app_vary, app_valid, sel, overflow
 
 
 K4 = StraddlersKernel()
+
+
+@contextlib.contextmanager
+def graph_scratch(store: dict):
+    """Inside the block, K4's launches take their scratch from ``store``
+    (a dict the caller keeps as long as its CUDA graph), one a device:
+    made, zeroed, by the eager warm-up before the capture, and reused by
+    the capture, so the graph holds no memset of it."""
+    K4._graph = store
+    try:
+        yield
+    finally:
+        K4._graph = None
 
 
 def check(tri_clip, tri_vary, valid, cap: int):

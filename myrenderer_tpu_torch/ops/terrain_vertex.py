@@ -40,6 +40,15 @@ LOOKUP_ROW = np.array([1, 0, 1, 1, 0, 0], np.int32)   # multiples of size
 LOOKUP_COL = np.array([0, 0, 1, 1, 0, 1], np.int32)   # +1 offsets
 
 
+def flush_subnormals(h: torch.Tensor) -> torch.Tensor:
+    """Heights as the JAX package reads them: a subnormal one is a zero
+    of its sign (XLA's CPU runtime flushes subnormal inputs, and a TPU has
+    none). The terrain's shaders apply it where they read a height."""
+    tiny = torch.finfo(torch.float32).tiny
+    return torch.where(h.abs() < tiny, torch.copysign(torch.zeros_like(h), h),
+                       h)
+
+
 def offset(size: int, device) -> torch.Tensor:
     """``0.1 * size`` rounded to f32, as the reference computes it, on
     ``device``."""
@@ -146,7 +155,8 @@ def terrain_vertex_reference(heights: torch.Tensor, uniforms: torch.Tensor,
     The terrain is a regular grid, so the per-vertex heightmap gathers
     become four shifted views of the flat height array (extended with
     copies of its last element: the robust-buffer-access clamp of the
-    reference's out-of-bounds ``quad + size + 1`` lookups)."""
+    reference's out-of-bounds ``quad + size + 1`` lookups). Heights are
+    read through :func:`flush_subnormals`, as K3 reads them."""
     dev = worlds.device
     s2 = size * size
     c02 = torch.tensor(0.2, dtype=torch.float32).to(dev)
@@ -163,7 +173,7 @@ def terrain_vertex_reference(heights: torch.Tensor, uniforms: torch.Tensor,
 
     clips, varys, ids = [], [], []
     for i in range(n_inst):
-        hm = heights[i]
+        hm = flush_subnormals(heights[i])
         uniform = uniforms[i]
         hm_ext = torch.cat([hm, hm[-1:].expand(size + 1)])
         c_q = hm_ext[0:s2]

@@ -12,7 +12,9 @@ and their device overflow flags give the frame.
   eagerly on a side stream (the warm-up PyTorch's graph documentation
   prescribes; its result is the frame the caller publishes), then
   captures it into a graph with its own memory pool. A capture that
-  fails raises: there is no quiet fall back to an eager frame.
+  fails raises: there is no quiet fall back to an eager frame. K4's
+  zeroed scratch is made by the warm-up and belongs to the graph
+  (``ops/straddlers.graph_scratch``).
 - **Inputs.** Every input leaf gets a static buffer. The host leaves
   (numpy f32: node transforms, perspectives, clear colours) go to the
   card each frame as ONE copy from pinned memory into one static flat
@@ -54,7 +56,7 @@ import torch
 
 from ..ops.raster_cuda import K1
 from ..ops.setup_pack import K2
-from ..ops.straddlers import K4
+from ..ops.straddlers import K4, graph_scratch
 from ..ops.terrain_vertex import K3
 from ..parallel.sharding import all_gather, leaves, tree_map
 
@@ -181,6 +183,7 @@ class CompiledFrame:
         self.pool_bytes = None
         self._inputs = None
         self._out = None
+        self._scratch = {}      # K4's, zeroed by the warm-up
 
     @classmethod
     def capture(cls, fn, args, device: torch.device):
@@ -194,7 +197,7 @@ class CompiledFrame:
             cur = torch.cuda.current_stream()
             side = torch.cuda.Stream()
             side.wait_stream(cur)
-            with torch.cuda.stream(side):
+            with torch.cuda.stream(side), graph_scratch(self._scratch):
                 out = fn(static)
             cur.wait_stream(side)
             for t in leaves(out):
@@ -206,7 +209,8 @@ class CompiledFrame:
             torch.cuda.empty_cache()
             reserved = torch.cuda.memory_reserved()
             graph = torch.cuda.CUDAGraph()
-            with _captured_launches(self.launches):
+            with _captured_launches(self.launches), \
+                    graph_scratch(self._scratch):
                 with torch.cuda.graph(graph):
                     self._out = fn(static)
             self.k1_launches = self.launches[K1]

@@ -10,7 +10,9 @@ Below them, the measuring and checking code that ``chip_smoke.py`` and
 ``trimmed``, ``edge_hits``, ``k1_bound``), the profiler's device time
 by kernel group (``profile_frames``, ``GROUPS``), host syncs a frame
 (``syncs_per_frame``), and the frame checks (``frames_equal``,
-``assert_no_flags``, ``oracle_frame``).
+``assert_no_flags``, ``oracle_frame``); K4's graph-replay check
+(``k4_graph_replays``), which ``chip_smoke.py`` and the card's tests
+share.
 """
 
 from __future__ import annotations
@@ -332,3 +334,58 @@ def oracle_frame(packed, bbox, H: int, W: int, depth0: float):
     num_r, den_r = raster_ref.planes(tc, w_r)
     w_ids = torch.where(w_r >= 0, ids[w_r.clamp(min=0).long()], w_r)
     return d_r, den_r, num_r, w_ids
+
+
+def k4_graph_replays(device, replays: int = 60,
+                     sizes=(300_000, 5_000)) -> int:
+    """K4 captured in one CUDA graph as a frame holds it (two calls, one
+    a batch of each of ``sizes``, on one stream, its scratch owned by the
+    graph as ``renderer/compiled.py`` owns it), replayed ``replays`` times
+    with the batches rewritten in place before each replay
+    (``trisets.straddler_replay``); after each replay all five results of
+    both calls against ``select_straddlers_reference`` on that replay's
+    inputs. Returns the values that differ (NaN against NaN by bits), and
+    raises if the graph does not hold exactly two launches or leaves its
+    scratch dirty. K4's launch count is left as it was."""
+    import torch
+
+    from ..ops import raster_common as rc
+    from ..ops import straddlers as st
+    from .trisets import REPLAY_CAP, straddler_replay
+    bufs = [(torch.zeros((n, 3, 4), device=device),
+             torch.zeros((n, 3, 4), device=device),
+             torch.zeros(n, dtype=torch.bool, device=device)) for n in sizes]
+    store, graph = {}, torch.cuda.CUDAGraph()
+    launches = st.K4.launches
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), st.graph_scratch(store):
+            for b in bufs:                  # the warm-up makes the scratch
+                rc.select_straddlers(*b, REPLAY_CAP)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        before = st.K4.launches
+        with st.graph_scratch(store), torch.cuda.graph(graph):
+            outs = [rc.select_straddlers(*b, REPLAY_CAP) for b in bufs]
+        if st.K4.launches - before != len(sizes):
+            raise AssertionError(f"the graph holds {st.K4.launches - before}"
+                                 f" K4 launches for {len(sizes)} calls")
+        bad = 0
+        for r in range(replays):
+            for k, (b, n) in enumerate(zip(bufs, sizes)):
+                for t, a in zip(b, straddler_replay(n, 3 * r + k)):
+                    t.copy_(torch.from_numpy(a))
+            graph.replay()
+            for b, got in zip(bufs, outs):
+                want = rc.select_straddlers_reference(*b, REPLAY_CAP)
+                for x, y in zip(got, want):
+                    if x.is_floating_point():
+                        x, y = x.view(torch.int32), y.view(torch.int32)
+                    bad += int((x != y).sum())
+        dirty = sum(int(t.count_nonzero()) for t in store.values())
+    st.K4.launches = launches
+    if dirty or not store:
+        raise AssertionError(f"K4's graph scratch holds {dirty} nonzero "
+                             f"words after the replays")
+    return bad

@@ -184,6 +184,33 @@ def straddler_batch(n, seed, straddlers, kinds=tuple(STRADDLER_KINDS),
     return clip, vary, valid
 
 
+# the graph-replay check of K4 (``profiling.k4_graph_replays``): each
+# replay rewrites its batches with the next of these (straddlers,
+# straddler_batch keywords; "in_last" puts them all in the batch's last
+# rows), against a cap of REPLAY_CAP: none, fewer than cap, exactly cap,
+# cap + 1, spread over many of K4's blocks, all in its last block, NaN rows,
+# invalid rows among them
+REPLAY_CAP = 64
+STRADDLER_REPLAYS = ((0, {}), (10, {}), (64, {}), (65, {}), (3000, {}),
+                     (40, {"in_last": 200}), (50, {"nan_rows": 500}),
+                     (64, {"invalid": 100}))
+
+
+def straddler_replay(n, r):
+    """Replay ``r``'s batch of ``n`` triangles: (clip, vary, valid) as
+    ``straddler_batch`` makes them, by ``STRADDLER_REPLAYS[r % 8]``."""
+    want, kw = STRADDLER_REPLAYS[r % len(STRADDLER_REPLAYS)]
+    kw = dict(kw)
+    last = kw.pop("in_last", 0)
+    if not last:
+        return straddler_batch(n, r, want, **kw)
+    clip, vary, valid = straddler_batch(n, r, 0)
+    for a, b in zip((clip, vary, valid),
+                    straddler_batch(last, r + 1, min(want, last))):
+        a[-last:] = b
+    return clip, vary, valid
+
+
 def terrain_inputs(size, instances, seed):
     """Inputs of the terrain's whole-stream vertex function (K3):
     heights f32[instances, size^2] in [0, 1] with exact 0s, 1s and

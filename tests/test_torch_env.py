@@ -33,6 +33,7 @@ PORT_MODULES = [
     "myrenderer_tpu_torch.renderer.compiled",
     "myrenderer_tpu_torch.state",
     "myrenderer_tpu_torch.tools.k1_lab",
+    "myrenderer_tpu_torch.tools.k4_lab",
     "myrenderer_tpu_torch.utils.png",
     "myrenderer_tpu_torch.utils.profiling",
     "myrenderer_tpu_torch.utils.scenes",

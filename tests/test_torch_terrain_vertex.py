@@ -5,14 +5,15 @@ On the CPU the terrain's ``vertex_batch_fn`` runs K3's plain version,
 whole-stream vertex function (``content/terrain.py``
 ``_make_vertex_batch_fn``, jitted on the CPU) bit for bit, heights of 0,
 1 and subnormals among the inputs, and the dispatcher to the plain
-version. The card's test holds K3 to its plain version.
+version. The per-vertex shader (``content/terrain._make_vertex_fn``) is
+held to the JAX package's per-vertex function on the same heights. The
+card's tests hold K3 to its plain version.
 
-XLA's CPU runtime treats subnormal f32 inputs as zero; the port keeps
-them (IEEE arithmetic, as K3 on the card). A subnormal height reaches
-the bits of a varying (5 h) and no clip lane at these inputs, so the
-JAX package's varyings are the port's on the heights with their
-subnormals zeroed, and the port's own varyings there are 5 h
-unflushed."""
+XLA's CPU runtime reads subnormal f32 inputs as zeros, and a TPU has no
+subnormals; the port's shaders read a subnormal height as a zero of its
+sign where they read it (``terrain_vertex.flush_subnormals``, and the
+same test in K3), so their varyings (5 h) and clip rows equal the JAX
+package's bit for bit on the raw heights."""
 
 import jax
 import jax.numpy as jnp
@@ -49,19 +50,11 @@ def jax_terrain(size, heights, uniforms, worlds):
     return jax.jit(fn)(worlds, uniforms, heights)
 
 
-def zero_subnormals(x):
-    """``x`` as XLA's CPU runtime reads it: subnormals as signed zeros."""
-    tiny = np.finfo(np.float32).tiny
-    return np.where(np.abs(x) < tiny, np.copysign(np.float32(0), x), x)
-
-
 @pytest.mark.parametrize("size,instances", CASES)
 def test_plain_version_matches_jax(size, instances):
     """terrain_vertex_reference against the JAX package's function: clip
-    positions bit for bit, ids equal, in the same order; varyings bit for
-    bit where the heights are normal or zero, and 5 h unflushed where
-    they are subnormal (the JAX package's CPU runtime reads those as
-    0)."""
+    positions, varyings and ids bit for bit, in the same order, on heights
+    with 0, 1 and subnormals (read as signed zeros by both)."""
     heights, uniforms, worlds = terrain_inputs(size, instances, 7 * size)
     subnormal = (heights != 0) & (np.abs(heights) < np.finfo(np.float32).tiny)
     assert (heights == 0).any()
@@ -70,28 +63,42 @@ def test_plain_version_matches_jax(size, instances):
     tris = tv.terrain_vertex_reference(torch.from_numpy(heights),
                                        torch.from_numpy(uniforms),
                                        torch.from_numpy(worlds), size)
-    zeroed = tv.terrain_vertex_reference(
-        torch.from_numpy(zero_subnormals(heights)),
-        torch.from_numpy(uniforms), torch.from_numpy(worlds), size)
     T = 2 * instances * size * size
     assert tris.clip.shape == tris.vary.shape == (T, 3, 4)
     np.testing.assert_array_equal(bits(jclip), bits(tris.clip))
-    np.testing.assert_array_equal(bits(jclip), bits(zeroed.clip))
-    np.testing.assert_array_equal(bits(jvary), bits(zeroed.vary))
+    np.testing.assert_array_equal(bits(jvary), bits(tris.vary))
     np.testing.assert_array_equal(np.asarray(jids), tris.ids.numpy())
-    # the port's varyings: 5 h of the height each vertex reads, in IEEE
-    # float32 (numpy flushes nothing)
-    y = tris.vary.numpy()[..., 0]
-    ids = tris.ids.numpy()
-    inst, rank = ids // (2 * size * size), ids % (2 * size * size)
-    quad, second = rank // 2, rank % 2
-    rows = tv.LOOKUP_ROW.reshape(2, 3)[second]
-    cols = tv.LOOKUP_COL.reshape(2, 3)[second]
-    idx = np.minimum(quad[:, None] + size * rows + cols, size * size - 1)
-    h_read = heights[inst[:, None], idx]
-    np.testing.assert_array_equal(bits(y), bits(np.float32(5) * h_read))
-    assert (np.abs(y[subnormal[inst[:, None], idx]]) > 0).all()
     assert tris.ids.dtype == torch.int32 and tris.planar
+
+
+@pytest.mark.parametrize("size", [2, 7])
+def test_per_vertex_shader_matches_jax(size):
+    """The per-vertex shader (``_make_vertex_fn``, through the vertex
+    stage's vmap) against the JAX package's per-vertex function under
+    ``jax.jit``, on heights with subnormals: clip positions and varyings
+    bit for bit."""
+    heights, uniforms, worlds = terrain_inputs(size, 1, 3 * size)
+    assert ((heights != 0)
+            & (np.abs(heights) < np.finfo(np.float32).tiny)).any()
+    V = 6 * size * size
+    vidx = np.arange(V, dtype=np.int32)
+    iids = np.zeros(V, np.int32)
+
+    def jax_fn(w, u, h):
+        return jvs.run_vertex_stage(jterrain._make_vertex_fn(size),
+                                    jnp.asarray(vidx), {}, w,
+                                    jnp.asarray(iids), {0: u, 1: h})
+
+    jclip, jvary = jax.jit(jax_fn)(worlds, uniforms, heights)
+    tris = tvs.run_vertex_stage(
+        tterrain._make_vertex_fn(size, torch.device("cpu")),
+        torch.from_numpy(vidx), {}, torch.from_numpy(worlds),
+        torch.from_numpy(iids),
+        {0: torch.from_numpy(uniforms), 1: torch.from_numpy(heights)})
+    np.testing.assert_array_equal(bits(np.asarray(jclip).reshape(-1, 3, 4)),
+                                  bits(tris.clip))
+    np.testing.assert_array_equal(bits(np.asarray(jvary).reshape(-1, 3, 4)),
+                                  bits(tris.vary))
 
 
 @pytest.mark.parametrize("size,instances", CASES)
@@ -132,16 +139,18 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_k3_matches_plain_version_on_card(cuda_device):
-    """K3 against its plain version on the card, one launch a call: the
-    demo's terrain size, the stress scene's and three instances; every
-    lane bit for bit."""
-    for size, instances in ((100, 1), (708, 1), (37, 3)):
-        h, u, w = (torch.from_numpy(a).to(cuda_device) for a in
-                   terrain_inputs(size, instances, size))
-        before = tv.K3.launches
-        got = tv.terrain_vertex(h, u, w, size)
-        assert tv.K3.launches == before + 1
-        want = tv.terrain_vertex_reference(h, u, w, size)
-        torch.cuda.synchronize()
-        for a, b in zip(got[:3], want[:3]):
-            np.testing.assert_array_equal(bits(a.cpu()), bits(b.cpu()))
+    """K3 against its plain version on the card, one launch a call: sizes
+    1, 7, 37, 100 (the demo's) and 708 (the stress scene's), each with 1
+    and 3 instances, so that ragged chunks and instance edges are crossed,
+    heights with subnormals among them; every lane bit for bit."""
+    for size in (1, 7, 37, 100, 708):
+        for instances in (1, 3):
+            h, u, w = (torch.from_numpy(a).to(cuda_device) for a in
+                       terrain_inputs(size, instances, size + instances))
+            before = tv.K3.launches
+            got = tv.terrain_vertex(h, u, w, size)
+            assert tv.K3.launches == before + 1
+            want = tv.terrain_vertex_reference(h, u, w, size)
+            torch.cuda.synchronize()
+            for a, b in zip(got[:3], want[:3]):
+                np.testing.assert_array_equal(bits(a.cpu()), bits(b.cpu()))
