@@ -7,8 +7,8 @@ at the first failed phase:
 
 1. environment: torch version, card name and power limit;
 2. build: K1 (csrc/raster_tile.cu), K2 (csrc/setup_pack.cu), K3
-   (csrc/terrain_vertex.cu) and K4 (csrc/straddlers.cu), one nvcc each,
-   started together, timed;
+   (csrc/terrain_vertex.cu), K4 (csrc/straddlers.cu) and K5
+   (csrc/bin_tiles.cu), one nvcc each, started together, timed;
 3. K1 against its plain PyTorch version on the card: random triangle
    sets (with duplicated triangles for depth ties), a crowded tile (1,200
    small triangles and 400 duplicates in one tile: 13 chunks of K1's
@@ -125,7 +125,22 @@ at the first failed phase:
    K2's are): K3 required on every path that draws a terrain, K4 on every
    path without a mesh, one K4 launch a batch and frame on the demo and
    stress paths;
-16. a JSON line of the kernels (K1-K4), the card line, and the last line
+16. K5 (binning, ``ops/binning.py``) against its plain PyTorch version on
+   the card, bit for bit in the index, starts, counts and flag: the CPU
+   tests' random boxes (``trisets.BIN_CASES``: off the frame, NaN,
+   invalid, a box over every tile, ragged frames, bands at y0 > 0, one
+   record, a crowded frame), each also starved to a third of its pairs;
+   spans summing past 2^31; every binning call of the 1080p demo's and the
+   4K stress scene's eager frame 1 (captured at ``bin_tiles``), as it is,
+   starved to a third of its pairs and cut into four bands; K5 as a CUDA
+   graph of two passes replayed 30 times with its boxes rewritten in place
+   (``profiling.k5_graph_replays``); K5 alone a frame's calls at a time
+   (warm, L2-flushed) beside its plain version, its bytes bound and
+   torch.sort over the pass's int64 tile keys; its chains counted from 0
+   around every path, required on every path that bins (phases 5 and 6:
+   one a frame), and no sort kernel in a single-device frame's trace
+   (phase 11);
+17. a JSON line of the kernels (K1-K5), the card line, and the last line
    {"ok": true, "device": {...}}.
 
 K1's bound at a shape is the larger of its bytes over 3.35 TB/s (what
@@ -145,7 +160,9 @@ like K1, a frame's launches at a time. K3's bound is its bytes over 3.35
 TB/s (heights, data transform and world matrix in; 100 bytes a triangle
 out), K4's its bytes (49 a triangle for the sectors that hold the w
 lanes and the valid flag, then the rows it selects in and the appendee
-block out); both are timed like K2.
+block out); both are timed like K2. K5's bound is its bytes (each
+record's box and flag in; the index's C slots, each tile's start and
+count and the flag out), timed like K2.
 
 Imports no JAX. Needs one CUDA card; fails without one.
 """
@@ -167,9 +184,9 @@ import numpy as np
 import torch
 
 from myrenderer_tpu_torch.utils.profiling import (
-    assert_no_flags, capture_k1_inputs, frames_equal, k1_bound,
-    k4_graph_replays, oracle_frame, print_groups, profile_frames, sync_all,
-    syncs_per_frame, trimmed)
+    SORTS, assert_no_flags, capture_k1_inputs, frames_equal, k1_bound,
+    k4_graph_replays, k5_graph_replays, oracle_frame, print_groups,
+    profile_frames, sync_all, syncs_per_frame, trimmed)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TIMED_FRAMES = 60
@@ -190,11 +207,13 @@ K2_OPS_PER_TRI = 207
 # fp32 operations of one triangle in K3: for each of its 3 vertices, x
 # and z 3 each (an FMA counts two), the 4 clip channels 6 each, y 1
 K3_OPS_PER_TRI = 93
-# K2's, K3's and K4's launches by path, each counted from 0 around the
-# path's run
+K5_REPLAYS = 30           # replays of phase 16's K5 graph
+# K2's, K3's, K4's and K5's launches by path, each counted from 0 around
+# the path's run
 K2_BY_PATH = collections.Counter()
 K3_BY_PATH = collections.Counter()
 K4_BY_PATH = collections.Counter()
+K5_BY_PATH = collections.Counter()
 
 
 def phase(name: str):
@@ -216,13 +235,15 @@ def card_line() -> str:
 
 @contextlib.contextmanager
 def kernel_path(path: str):
-    """Count K2's, K3's and K4's launches while the block drives
+    """Count K2's, K3's, K4's and K5's launches while the block drives
     ``path``: each count set to 0 just before, read just after, added to
-    ``K2_BY_PATH[path]``, ``K3_BY_PATH[path]`` and ``K4_BY_PATH[path]``."""
+    ``K2_BY_PATH[path]`` .. ``K5_BY_PATH[path]``."""
+    from myrenderer_tpu_torch.ops.binning import K5
     from myrenderer_tpu_torch.ops.setup_pack import K2
     from myrenderer_tpu_torch.ops.straddlers import K4
     from myrenderer_tpu_torch.ops.terrain_vertex import K3
-    counted = ((K2, K2_BY_PATH), (K3, K3_BY_PATH), (K4, K4_BY_PATH))
+    counted = ((K2, K2_BY_PATH), (K3, K3_BY_PATH), (K4, K4_BY_PATH),
+               (K5, K5_BY_PATH))
     for kernel, _ in counted:
         kernel.launches = 0
     yield
@@ -1071,6 +1092,17 @@ def uncapturable_raises():
                          "or rendered eagerly")
 
 
+def no_sort(label: str, by_name: dict):
+    """A single-device frame's trace holds no sort (K4 selects the
+    straddlers and K5 bins without one); a mesh frame still sorts its
+    shards' straddler candidates, and its sorts are printed."""
+    sorts = {k: n for k, (_t, n) in by_name.items() if SORTS[1] in k}
+    print(f"  sort kernels in the {label} frames: {sum(sorts.values())}")
+    if sorts and "bands" not in label:
+        raise AssertionError(f"{label}: sort kernels in the trace: "
+                             f"{sorted(sorts)}")
+
+
 def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
     """Phase 11: the frame as one CUDA graph replay, against the eager
     frame."""
@@ -1122,6 +1154,7 @@ def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
                        ("demo 4 bands graph", bands[0])):
         wall, busy, ops, by_name, _ = profile_frames(
             app, PROFILE_FRAMES, "trace_" + label.replace(" ", "_"))
+        no_sort(label, by_name)
         k1 = by_name.get(next((k for k in by_name
                                if "raster_tile_kernel" in k), ""), (0, 0))
         k1_ms = k1[0] / 1e3 / k1[1] if k1[1] else None
@@ -1173,6 +1206,7 @@ def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
                        ("stress 4 bands graph", stress4[0])):
         wall, busy, ops, by_name, _ = profile_frames(
             app, PROFILE_FRAMES, "trace_" + label.replace(" ", "_"))
+        no_sort(label, by_name)
         k1 = by_name.get(next((k for k in by_name
                                if "raster_tile_kernel" in k), ""), (0, 0))
         k1_ms = k1[0] / 1e3 / k1[1] if k1[1] else None
@@ -1773,6 +1807,142 @@ def k3_k4_phase(dev, card: str, flush) -> dict:
     return {"max_abs_err": err, "shapes": shapes}
 
 
+def k5_check(call):
+    """K5 and its plain version on one call's inputs: (values that
+    differ, the largest absolute difference over the four results, each
+    an integer or a flag)."""
+    from myrenderer_tpu_torch.ops import binning
+    launches = binning.K5.launches
+    got = binning.K5(**call)
+    binning.K5.launches = launches
+    want = binning.bin_tiles_reference(**call)
+    torch.cuda.synchronize()
+    bad, _ = against_plain(got, want)
+    err = max(float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+              for a, b in zip(got, want))
+    return bad, err
+
+
+def k5_bound(calls):
+    """K5's bound over ``calls``: (ms, "bytes", bytes). Each record's box
+    (16 bytes) and valid flag are read once; each of the C slots of the
+    index (4 bytes), each tile's start and count (8 bytes) and the flag
+    written once. The comparisons and the integer arithmetic of a rect
+    (some 30 operations a record) are far under the bytes."""
+    from myrenderer_tpu_torch.ops.binning import tile_grid
+    nbytes = 0
+    for c in calls:
+        nty, ntx = tile_grid(c["height"], c["width"])
+        nbytes += (17 * c["valid"].shape[0] + 4 * c["capacity"]
+                   + 8 * nty * ntx + 1)
+    return nbytes / 3.35e12 * 1e3, "bytes", nbytes
+
+
+def k5_phase(dev, card: str, flush) -> dict:
+    """Phase 16: K5 against its plain version, bit for bit, on random
+    boxes, on the 1080p demo's and the 4K stress scene's frame-1 binning
+    calls (as they are, starved to a third of their pairs, and cut into
+    four bands) and as graph replays; K5 alone at those calls' shapes
+    beside its plain version, its bound and torch.sort over the pass's
+    int64 tile keys."""
+    from myrenderer_tpu_torch.app.demo import DemoApp
+    from myrenderer_tpu_torch.app.stress import StressApp
+    from myrenderer_tpu_torch.ops import binning, raster
+    from myrenderer_tpu_torch.utils.trisets import BIN_CASES, bin_case
+
+    worst = [0.0]
+
+    def held(call, label):
+        bad, err = k5_check(call)
+        worst[0] = max(worst[0], err)
+        R = call["valid"].shape[0]
+        print(f"  K5 {label} ({R} records, {call['height']} x "
+              f"{call['width']} from row {call['y0']}, capacity "
+              f"{call['capacity']}): {bad} values differ, largest "
+              f"difference {err}")
+        if bad:
+            raise AssertionError(f"K5 differs from its plain version "
+                                 f"({label})")
+
+    def pairs_of(call):
+        return int(binning.bin_tiles_reference(**call)[2].sum())
+
+    for name in BIN_CASES:
+        valid, bbox, height, width, y0 = bin_case(name)
+        call = {"valid": torch.from_numpy(valid).to(dev),
+                "bbox": tuple(torch.from_numpy(bbox).to(dev)),
+                "height": height, "width": width, "y0": y0,
+                "capacity": raster.pair_capacity(valid.size)}
+        held(call, f"random boxes, {name}")
+        held({**call, "capacity": max(pairs_of(call) // 3, 1)},
+             f"random boxes, {name}, starved to a third of its pairs")
+    R = 2**31 // 4096 + 1
+    held({"valid": torch.ones(R, dtype=torch.bool, device=dev),
+          "bbox": tuple(torch.tensor([-1.0, 1030.0, -1.0, 1030.0],
+                                     device=dev)[:, None].expand(4, R)),
+          "height": 1024, "width": 1024, "y0": 0,
+          "capacity": raster.pair_capacity(R)},
+         "every record over every tile, spans summing to 2^31 + 4,096")
+    bad = k5_graph_replays(dev, replays=K5_REPLAYS)
+    print(f"  K5 as a CUDA graph of two passes (20,000 boxes of a 1920 x "
+          f"1080 frame, the frame and its band from row 540), "
+          f"{K5_REPLAYS} replays, boxes rewritten in place: {bad} values "
+          f"differ; scratch zeroed after; card: {card}")
+    if bad:
+        raise AssertionError("K5's graph replays differ from its plain "
+                             "version")
+    shapes = {}
+    for cell, make in (("demo_1080p", lambda: DemoApp(1920, 1080,
+                                                       device="cuda")),
+                       ("stress_4k", lambda: StressApp(device="cuda"))):
+        app = make()
+        app.draw._eager_frames = True
+        calls = []
+        with record_calls(binning, "bin_tiles", calls):
+            app.tick()
+        assert_no_flags(app, f"{cell} frame 1 (K5's calls)")
+        if not calls:
+            raise AssertionError(f"{cell} frame 1 made no binning call")
+        for c in calls:
+            c["bbox"] = tuple(c["bbox"])
+            held(c, f"{cell} frame 1")
+            pairs = pairs_of(c)
+            held({**c, "capacity": pairs // 3},
+                 f"{cell} frame 1, starved to a third of its {pairs} pairs")
+            H = c["height"]
+            for k in range(4):
+                held({**c, "height": H // 4, "y0": k * H // 4},
+                     f"{cell} frame 1, band {k} of 4")
+        shapes[cell] = time_alone("K5", binning.K5,
+                                  binning.bin_tiles_reference, calls, flush,
+                                  k5_bound, f"{cell} frame-1 calls", card)
+        # torch.sort over the int64 tile keys of the pass's C slots, as the
+        # plain version sorts them
+        keys = [binning._slot_tiles(binning._spans(
+            c["valid"], c["bbox"], c["height"], c["width"], c["y0"]),
+            c["capacity"])[1] for c in calls]
+
+        def sort_frame():
+            for k in keys:
+                torch.sort(k, stable=True)
+        runs = [time_call(sort_frame, 20) for _ in range(2)]
+        shapes[cell]["sort_keys_ms"] = min(runs)
+        print(f"  torch.sort(stable=True) over the {cell} frame-1 pass's "
+              f"{sum(k.numel() for k in keys)} int64 tile keys: "
+              f"{min(runs):.4f} ms (runs {runs[0]:.4f}, {runs[1]:.4f}); "
+              f"card: {card}")
+        del app, calls, keys
+        gc.collect()
+        torch.cuda.empty_cache()
+    by_path = {k: v for k, v in K5_BY_PATH.items() if "(" not in k}
+    print(f"  K5 chains by path (each counted from 0 around it): {by_path}; "
+          f"count kernel blocks resident at once: "
+          f"{binning.K5.resident_blocks(dev)} (a band's 1,024-tile scan "
+          f"chunks may not pass it); card: {card}")
+    return {"max_abs_err": worst[0], "shapes": shapes,
+            "random_cases": len(BIN_CASES)}
+
+
 def main() -> int:
     phase("1 environment")
     if not torch.cuda.is_available():
@@ -1789,11 +1959,13 @@ def main() -> int:
           f"card: {card}")
     dev = torch.device("cuda", 0)
 
-    phase("2 build K1, K2, K3 and K4")
+    phase("2 build K1, K2, K3, K4 and K5")
+    from myrenderer_tpu_torch.ops import binning
     from myrenderer_tpu_torch.ops import setup_pack as sp
     from myrenderer_tpu_torch.ops import straddlers as st
     from myrenderer_tpu_torch.ops import terrain_vertex as tv
-    kernels = {"K1": rk.K1, "K2": sp.K2, "K3": tv.K3, "K4": st.K4}
+    kernels = {"K1": rk.K1, "K2": sp.K2, "K3": tv.K3, "K4": st.K4,
+               "K5": binning.K5}
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.build(), kernels.values()))
@@ -1894,6 +2066,9 @@ def main() -> int:
     if K4_BY_PATH["demo_1080p"] != batches(app) * TIMED_FRAMES:
         raise AssertionError(f"K4 launched {K4_BY_PATH['demo_1080p']} "
                              f"times in {TIMED_FRAMES} frames")
+    if K5_BY_PATH["demo_1080p"] != TIMED_FRAMES:
+        raise AssertionError(f"K5 chained {K5_BY_PATH['demo_1080p']} "
+                             f"times in {TIMED_FRAMES} one-pass frames")
     fb = app.window.framebuffer
     if fb.shape != (1080, 1920, 4) or not bool(torch.isfinite(fb).all()):
         raise AssertionError("1080p framebuffer is not finite f32[1080, "
@@ -1907,7 +2082,8 @@ def main() -> int:
     print(f"  K1 path (CUDA graph replay): {ms:.3f} ms/frame over "
           f"{TIMED_FRAMES} frames, {path_launches} K1 launches, "
           f"{K2_BY_PATH['demo_1080p']} K2 launches, "
-          f"{K3_BY_PATH['demo_1080p']} K3, {K4_BY_PATH['demo_1080p']} K4; "
+          f"{K3_BY_PATH['demo_1080p']} K3, {K4_BY_PATH['demo_1080p']} K4, "
+          f"{K5_BY_PATH['demo_1080p']} K5 chains; "
           f"plain-version path (eager): {plain_ms:.3f} ms/frame "
           f"({plain_ms_a:.3f}, {plain_ms_b:.3f}); card: {card}")
 
@@ -1974,6 +2150,9 @@ def main() -> int:
     if K4_BY_PATH["stress_4k"] != batches(stress) * STRESS_FRAMES:
         raise AssertionError(f"K4 launched {K4_BY_PATH['stress_4k']} times "
                              f"in {STRESS_FRAMES} stress frames")
+    if K5_BY_PATH["stress_4k"] != STRESS_FRAMES:
+        raise AssertionError(f"K5 chained {K5_BY_PATH['stress_4k']} times "
+                             f"in {STRESS_FRAMES} one-pass stress frames")
     fb = stress.window.framebuffer
     if fb.shape != (2160, 3840, 4) or not bool(torch.isfinite(fb).all()):
         raise AssertionError("stress framebuffer is not finite f32[2160, "
@@ -1994,7 +2173,8 @@ def main() -> int:
           f"({stress.triangles / stress_ms / 1e3:.2f} Mtri/s), "
           f"{stress_launches} K1 launches, {K2_BY_PATH['stress_4k']} K2 "
           f"launches, {K3_BY_PATH['stress_4k']} K3, "
-          f"{K4_BY_PATH['stress_4k']} K4; plain-version path: "
+          f"{K4_BY_PATH['stress_4k']} K4, {K5_BY_PATH['stress_4k']} K5 "
+          f"chains; plain-version path: "
           f"{stress_plain_ms:.3f} ms/frame over {STRESS_PLAIN_FRAMES} "
           f"frames, last frame bit-equal to the K1 path's; card: {card}")
     shapes["stress_4k"] = time_k1(s_inputs, 50, 2,
@@ -2213,7 +2393,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     k34 = k3_k4_phase(dev, card, flush)
 
-    phase("16 results")
+    phase("16 K5 against its plain version on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    k5 = k5_phase(dev, card, flush)
+
+    phase("17 results")
     by_path = {"demo_1080p": path_launches, "stress_4k": stress_launches,
                "sequential": seq_launches, "textured": tex_launches,
                "demo_8k": k8_launches,
@@ -2255,8 +2440,18 @@ def main() -> int:
                     "demo_8k", "demo_1080p_bands1", "stress_4k_bands1",
                     "demo_1080p_graph", "stress_4k_graph",
                     "behaviour_scenes", "bench_smoke")
+    # K5 on every path that bins (every path K1 is counted on, a mesh's
+    # bands included)
+    k5_by_path = {k: v for k, v in K5_BY_PATH.items() if "(" not in k}
+    bin_paths = ("demo_1080p", "stress_4k", "sequential", "textured",
+                 "demo_8k", "demo_1080p_bands1", "demo_1080p_bands4",
+                 "stress_4k_bands1", "stress_4k_bands4", "stress_4k_bands8",
+                 "demo_1080p_graph", "demo_1080p_bands4_graph",
+                 "stress_4k_graph", "stress_4k_bands4_graph",
+                 "behaviour_scenes", "bench_smoke")
     for name, counts, paths in (("K3", k3_by_path, terrain_paths),
-                                ("K4", k4_by_path, single_paths)):
+                                ("K4", k4_by_path, single_paths),
+                                ("K5", k5_by_path, bin_paths)):
         missing = [k for k in paths if not counts.get(k)]
         if missing:
             raise AssertionError(f"{name} was not launched on {missing}")
@@ -2352,6 +2547,29 @@ def main() -> int:
         "library_ms": None,       # no PyTorch call computes K4's function
         "shapes": k34["shapes"]["K4"],
         "build_s": st.K4.build_seconds,
+    }, {
+        "name": "K5 bin_tiles",
+        "route": "cuda",
+        "source": "myrenderer_tpu_torch/csrc/bin_tiles.cu",
+        # no Pallas kernel: the JAX package's bin_packed, whose sort XLA
+        # runs
+        "replaces": "myrenderer_tpu/ops/raster_pallas.py:321",
+        # one count a chain of three kernels (count, place, order)
+        "launches": sum(k5_by_path.values()),
+        "launches_by_path": k5_by_path,
+        "max_abs_err": k5["max_abs_err"],
+        # the main path's shapes (the 1080p demo's frame 1: its one pass);
+        # the stress frame's under "shapes"
+        "ms": k5["shapes"]["demo_1080p"]["ms"],
+        "plain_ms": k5["shapes"]["demo_1080p"]["plain_ms"],
+        "bound_ms": k5["shapes"]["demo_1080p"]["bound_ms"],
+        "bound_by": k5["shapes"]["demo_1080p"]["bound_by"],
+        "library_ms": None,       # no PyTorch call computes K5's function
+        # torch.sort over the pass's int64 tile keys: the sort K5 replaces
+        "sort_keys_ms": k5["shapes"]["demo_1080p"]["sort_keys_ms"],
+        "shapes": k5["shapes"],
+        "random_cases": k5["random_cases"],
+        "build_s": binning.K5.build_seconds,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

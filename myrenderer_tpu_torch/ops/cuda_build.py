@@ -13,12 +13,14 @@ flushing subnormals.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
 import tempfile
 import time
+from typing import Optional
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
@@ -57,3 +59,49 @@ def build_library(source: str, what: str):
             raise RuntimeError(f"nvcc failed building {what}:\n{log}")
         os.replace(tmp, path)
     return ctypes.CDLL(path), time.perf_counter() - t0, log
+
+
+class ZeroedScratch:
+    """Device scratch for a kernel whose launches find their words zeroed
+    and leave them zeroed (K4's and K5's counters and status words): each
+    scratch is zeroed once, when it is made, and never by a launch or a
+    graph node. Two launches that run at once must not share one, so a
+    scratch belongs to one (device, stream) for eager launches and, inside
+    :meth:`graph`, to the caller's store, one a device, for the launches
+    captured into one CUDA graph."""
+
+    def __init__(self):
+        self._eager: dict = {}
+        self._graph: Optional[dict] = None
+
+    def get(self, dev, words: int):
+        """At least ``words`` zeroed 8-byte words for a launch on ``dev``'s
+        current stream."""
+        import torch
+        if self._graph is not None:
+            store, key = self._graph, dev.index
+        else:
+            store = self._eager
+            key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        have = store.get(key)
+        if have is not None and have.numel() >= words:
+            return have
+        if torch.cuda.is_current_stream_capturing():
+            # a new allocation inside a capture: the graph's memset zeroes
+            # it at each replay, and nothing outside the graph keeps it
+            return torch.zeros(words, dtype=torch.int64, device=dev)
+        have = torch.zeros(words, dtype=torch.int64, device=dev)
+        store[key] = have
+        return have
+
+    @contextlib.contextmanager
+    def graph(self, store: dict):
+        """Inside the block, launches take their scratch from ``store`` (a
+        dict the caller keeps as long as its CUDA graph): made, zeroed, by
+        the eager warm-up before the capture, and reused by the capture,
+        so the graph holds no memset of it."""
+        self._graph = store
+        try:
+            yield
+        finally:
+            self._graph = None

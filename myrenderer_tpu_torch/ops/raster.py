@@ -4,22 +4,20 @@ at a static pair capacity, the raster pass and shading (torch).
 Port of the host side of ``myrenderer_tpu/ops/raster_pallas.py``. Per
 raster pass:
 
-1. **Binning** (plain torch): each valid triangle's pixel bounding box
-   becomes a rect of TILE_H x TILE_W tiles. The (tile, record) pairs are
-   enumerated over a static capacity of C slots (the reference's stream
-   capacity, :func:`pair_capacity`): slot p finds its record by
-   ``searchsorted`` on the cumulative spans, slots past the true total
-   take the tile id NT, and a stable sort by tile puts them past every
-   segment while records stay in ascending order within a tile. CSR
-   ``starts``/``counts`` come from ``searchsorted`` on the sorted tiles.
-   Shapes depend only on the record count, nothing is read back to the
-   host, and a pass of N row bands has N binnings and no sync. When the
-   pairs outgrow C, the pass's overflow flag is set on the device, the
-   last records' pairs are left out (every segment stays inside the
-   index) and ``Draw`` raises its capacity and renders again. The bin
-   order is an index of record rows (4 bytes a pair); the records are
-   not copied. The resolve is order-free, so routing cannot change a
-   pixel.
+1. **Binning** (K5, ``binning.bin_tiles``): each valid triangle's pixel
+   bounding box becomes a rect of TILE_H x TILE_W tiles, and its (tile,
+   record) pairs go into a static capacity of C slots (the reference's
+   stream capacity, :func:`pair_capacity`) as CSR ``index`` / ``starts``
+   / ``counts``, records in ascending order within a tile. On the card
+   that is one chain of hand-written kernels with no sort; on the CPU its
+   plain version (every slot expanded, a stable sort by tile). Shapes
+   depend only on the record count, nothing is read back to the host,
+   and a pass of N row bands has N binnings and no sync. When the pairs
+   outgrow C, the pass's overflow flag is set on the device, the last
+   records' pairs are left out (every segment stays inside the index)
+   and ``Draw`` raises its capacity and renders again. The bin order is
+   an index of record rows (4 bytes a pair); the records are not copied.
+   The resolve is order-free, so routing cannot change a pixel.
 2. **K1** (``raster_cuda.rasterize_tiles``): one CTA per tile, reading
    the records through the index.
 3. **Shading** (plain torch): one divide and the fragment programs over
@@ -32,8 +30,9 @@ from typing import Optional
 
 import torch
 
+from . import binning
 from . import raster_common as rc
-from .raster_cuda import TILE_H, TILE_W, rasterize_tiles
+from .raster_cuda import rasterize_tiles
 
 
 def viewport_bbox(tri_clip: torch.Tensor, width: int, vp_height: int):
@@ -44,32 +43,6 @@ def viewport_bbox(tri_clip: torch.Tensor, width: int, vp_height: int):
     u = (0.5 * tri_clip[..., 0] / w + 0.5) * float(width)
     v = (0.5 - 0.5 * tri_clip[..., 1] / w) * float(vp_height)
     return (u.amin(1), u.amax(1), v.amin(1), v.amax(1))
-
-
-def _bin_spans(valid, bbox, height: int, width: int, y0: int):
-    """Per-record tile rects of one band: (span i64[T], sx, tx0, ty0,
-    ntx, NT); span is the record's tile count, 0 when culled."""
-    nty = -(-height // TILE_H)
-    ntx = -(-width // TILE_W)
-    # the reference bins on the tile-padded band height
-    ph = nty * TILE_H
-    # band-local cull: a record whose box misses rows [y0, y0 + ph) (or
-    # the frame's columns) covers no pixel of this band
-    valid = (valid & (bbox[3] >= y0) & (bbox[2] < y0 + ph)
-             & (bbox[1] >= 0.0) & (bbox[0] < width))
-    minx = torch.clamp(torch.floor(bbox[0]), 0, width - 1)
-    maxx = torch.clamp(torch.ceil(bbox[1]), 0, width - 1)
-    miny = torch.clamp(torch.floor(bbox[2]) - y0, 0, ph - 1)
-    maxy = torch.clamp(torch.ceil(bbox[3]) - y0, 0, ph - 1)
-    zero = torch.zeros((), dtype=torch.int32, device=valid.device)
-    tx0 = torch.where(valid, (minx / TILE_W).to(torch.int32), zero)
-    tx1 = torch.where(valid, (maxx / TILE_W).to(torch.int32), zero)
-    ty0 = torch.where(valid, (miny / TILE_H).to(torch.int32), zero)
-    ty1 = torch.where(valid, (maxy / TILE_H).to(torch.int32), zero)
-    sx = (tx1 - tx0 + 1).long()
-    span = torch.where(valid, sx * (ty1 - ty0 + 1).long(),
-                       torch.zeros_like(sx))
-    return span, sx, tx0, ty0, ntx, nty * ntx
 
 
 # pair slots per packed record at big scale 1, and their floor: frame 1
@@ -96,41 +69,6 @@ def pair_capacity(records: int, big_scale: int = 1) -> int:
     return -(-c // _PAIR_ROUND) * _PAIR_ROUND
 
 
-def _bin_expand(spans, capacity: int):
-    """(index i32[C], starts i32[NT], counts i32[NT], overflow bool[])
-    from :func:`_bin_spans` over ``capacity`` pair slots. Slot p holds
-    the pair of the record whose span covers it; slots past the live
-    total hold the last record and sort past every tile's segment."""
-    span, sx, tx0, ty0, ntx, NT = spans
-    dev = span.device
-    R = span.shape[0]
-    if R == 0:
-        zeros = torch.zeros(NT, dtype=torch.int32, device=dev)
-        return (torch.zeros(capacity, dtype=torch.int32, device=dev), zeros,
-                zeros.clone(), torch.zeros((), dtype=torch.bool, device=dev))
-    ends = torch.cumsum(span, 0)
-    total = ends[-1]
-    slot = torch.arange(capacity, device=dev)
-    tri = torch.clamp(torch.searchsorted(ends, slot, right=True), max=R - 1)
-    k = slot - (ends - span)[tri]
-    ey = k // sx[tri]
-    ex = k - ey * sx[tri]
-    tile = torch.where(slot < total,
-                       (ty0[tri].long() + ey) * ntx + tx0[tri].long() + ex,
-                       NT)
-    tile_sorted, order = torch.sort(tile, stable=True)
-    # each tile's segment of the sorted pairs (bincount would read the
-    # largest tile id back to the host); dead slots sort past tile NT - 1,
-    # so every segment lies in [0, C]
-    bounds = torch.searchsorted(tile_sorted,
-                                torch.arange(NT + 1, device=dev))
-    starts = bounds[:-1]
-    counts = bounds[1:] - starts
-    index = tri[order].to(torch.int32)
-    return (index, starts.to(torch.int32), counts.to(torch.int32),
-            total > capacity)
-
-
 def bin_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
                height: int, width: int, y0: int = 0, big_scale: int = 1):
     """CSR binning of records to the tiles of an H x W frame, or of the
@@ -147,15 +85,15 @@ def bin_packed(packed: torch.Tensor, valid: torch.Tensor, bbox,
     are dropped. Without overflow, ``index[:counts.sum()]``, ``starts``
     and ``counts`` are those of exact binning; with it, the pairs past
     the C-th (in record order) are left out."""
-    spans = _bin_spans(valid, bbox, height, width, y0)
-    return _bin_expand(spans, pair_capacity(packed.shape[0], big_scale))
+    return binning.bin_tiles(valid, bbox, height, width, y0,
+                             pair_capacity(packed.shape[0], big_scale))
 
 
 def bin_bands(bands, width: int, big_scale: int = 1):
     """:func:`bin_packed` of several bands of one pass: ``bands`` holds
     (valid, bbox, height, y0) per band, each on its own device."""
-    return [_bin_expand(_bin_spans(v, b, h, width, y0),
-                        pair_capacity(v.shape[0], big_scale))
+    return [binning.bin_tiles(v, b, h, width, y0,
+                              pair_capacity(v.shape[0], big_scale))
             for v, b, h, y0 in bands]
 
 

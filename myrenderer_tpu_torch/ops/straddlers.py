@@ -24,14 +24,13 @@ memset node of the graph.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import os
 from typing import Optional
 
 import torch
 
-from .cuda_build import CSRC, build_library
+from .cuda_build import CSRC, ZeroedScratch, build_library
 
 _SOURCE = os.path.join(CSRC, "straddlers.cu")
 
@@ -46,10 +45,7 @@ class StraddlersKernel:
         self.lib: Optional[ctypes.CDLL] = None
         self.build_seconds: Optional[float] = None
         self.build_log = ""
-        # zeroed scratch by (device index, stream handle) for eager calls;
-        # inside graph_scratch, its store's by device index
-        self._eager: dict = {}
-        self._graph: Optional[dict] = None
+        self.scratch = ZeroedScratch()
 
     def build(self) -> ctypes.CDLL:
         """Compile (once per source and flag set) and load the kernel."""
@@ -68,25 +64,6 @@ class StraddlersKernel:
         self.lib = lib
         return lib
 
-    def scratch(self, dev: torch.device, words: int) -> torch.Tensor:
-        """``words`` zeroed 8-byte words for a launch on ``dev``'s current
-        stream (the module docstring says whose they are)."""
-        if self._graph is not None:
-            store, key = self._graph, dev.index
-        else:
-            store = self._eager
-            key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
-        have = store.get(key)
-        if have is not None and have.numel() >= words:
-            return have
-        if torch.cuda.is_current_stream_capturing():
-            # a new allocation inside a capture: the graph's memset zeroes
-            # it at each replay, and nothing outside the graph keeps it
-            return torch.zeros(words, dtype=torch.int64, device=dev)
-        have = torch.zeros(words, dtype=torch.int64, device=dev)
-        store[key] = have
-        return have
-
     def __call__(self, tri_clip, tri_vary, valid, cap: int):
         """``select_straddlers``' five results for CUDA tensors of T > 0
         triangles (checked by the caller)."""
@@ -98,7 +75,7 @@ class StraddlersKernel:
                              f"channels, got {C}")
         dev = tri_clip.device
         with torch.cuda.device(dev):
-            scratch = self.scratch(dev, 2 + lib.straddlers_blocks(T))
+            scratch = self.scratch.get(dev, 2 + lib.straddlers_blocks(T))
             app_clip = torch.empty((2 * cap, 3, 4), dtype=torch.float32,
                                    device=dev)
             app_vary = torch.empty((2 * cap, 3, C), dtype=torch.float32,
@@ -123,17 +100,12 @@ class StraddlersKernel:
 K4 = StraddlersKernel()
 
 
-@contextlib.contextmanager
 def graph_scratch(store: dict):
-    """Inside the block, K4's launches take their scratch from ``store``
-    (a dict the caller keeps as long as its CUDA graph), one a device:
-    made, zeroed, by the eager warm-up before the capture, and reused by
-    the capture, so the graph holds no memset of it."""
-    K4._graph = store
-    try:
-        yield
-    finally:
-        K4._graph = None
+    """A context inside which K4's launches take their scratch from
+    ``store`` (a dict the caller keeps as long as its CUDA graph), one a
+    device: made, zeroed, by the eager warm-up before the capture, and
+    reused by the capture, so the graph holds no memset of it."""
+    return K4.scratch.graph(store)
 
 
 def check(tri_clip, tri_vary, valid, cap: int):

@@ -12,9 +12,9 @@ and their device overflow flags give the frame.
   eagerly on a side stream (the warm-up PyTorch's graph documentation
   prescribes; its result is the frame the caller publishes), then
   captures it into a graph with its own memory pool. A capture that
-  fails raises: there is no quiet fall back to an eager frame. K4's
-  zeroed scratch is made by the warm-up and belongs to the graph
-  (``ops/straddlers.graph_scratch``).
+  fails raises: there is no quiet fall back to an eager frame. K4's and
+  K5's zeroed scratch is made by the warm-up and belongs to the graph
+  (:func:`graph_scratch`); a mesh frame's graphs share one store.
 - **Inputs.** Every input leaf gets a static buffer. The host leaves
   (numpy f32: node transforms, perspectives, clear colours) go to the
   card each frame as ONE copy from pinned memory into one static flat
@@ -27,7 +27,7 @@ and their device overflow flags give the frame.
   included) runs at capture only; replays run the recorded kernels.
   Python-side values read by a vertex function are baked in, as
   ``jax.jit`` bakes them into its trace.
-- **Launch counting.** The launches of the port's kernels (K1-K4)
+- **Launch counting.** The launches of the port's kernels (K1-K5)
   recorded in the graph are taken back out of their counts at capture
   (nothing ran) and added at each replay.
 - **A mesh frame** (:class:`CompiledMeshFrame`) is one program across
@@ -54,15 +54,27 @@ import time
 import numpy as np
 import torch
 
+from ..ops import binning, straddlers
+from ..ops.binning import K5
 from ..ops.raster_cuda import K1
 from ..ops.setup_pack import K2
-from ..ops.straddlers import K4, graph_scratch
+from ..ops.straddlers import K4
 from ..ops.terrain_vertex import K3
 from ..parallel.sharding import all_gather, leaves, tree_map
 
 
 # the kernels whose launches a replay counts
-KERNELS = (K1, K2, K3, K4)
+KERNELS = (K1, K2, K3, K4, K5)
+
+
+@contextlib.contextmanager
+def graph_scratch(store: dict):
+    """K4's and K5's scratch taken from ``store`` (kept as long as the
+    graph) inside the block: one a kernel and device, made by the eager
+    warm-up and reused by the capture."""
+    with straddlers.graph_scratch(store.setdefault("K4", {})), \
+            binning.graph_scratch(store.setdefault("K5", {})):
+        yield
 
 
 @contextlib.contextmanager
@@ -183,7 +195,7 @@ class CompiledFrame:
         self.pool_bytes = None
         self._inputs = None
         self._out = None
-        self._scratch = {}      # K4's, zeroed by the warm-up
+        self._scratch = {}      # K4's and K5's, zeroed by the warm-up
 
     @classmethod
     def capture(cls, fn, args, device: torch.device):
@@ -256,6 +268,7 @@ class CompiledMeshFrame:
         self._copies = []         # (buffer, source) of each peer copy
         self._out = None
         self._outputs = None
+        self._scratch = {}        # K5's, zeroed by the warm-up
 
     @classmethod
     def capture(cls, stages, args, devices: list):
@@ -277,6 +290,7 @@ class CompiledMeshFrame:
         with contextlib.ExitStack() as stack:
             for s in side:
                 stack.enter_context(torch.cuda.stream(s))
+            stack.enter_context(graph_scratch(self._scratch))
             pieces = [shard_stage(v, d) for v, d in zip(static, devices)]
             out = outputs([band_stage(v, all_gather(pieces, d), d)
                            for v, d in zip(static, devices)])
@@ -291,7 +305,8 @@ class CompiledMeshFrame:
             torch.cuda.synchronize(d)
         torch.cuda.empty_cache()
         reserved = [torch.cuda.memory_reserved(d) for d in devices]
-        with _captured_launches(self.launches):
+        with _captured_launches(self.launches), \
+                graph_scratch(self._scratch):
             for v, d in zip(static, devices):
                 graph, pieces = self._capture(self._shards,
                                               (shard_stage, v, d), d)

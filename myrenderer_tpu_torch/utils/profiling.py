@@ -10,9 +10,9 @@ Below them, the measuring and checking code that ``chip_smoke.py`` and
 ``trimmed``, ``edge_hits``, ``k1_bound``), the profiler's device time
 by kernel group (``profile_frames``, ``GROUPS``), host syncs a frame
 (``syncs_per_frame``), and the frame checks (``frames_equal``,
-``assert_no_flags``, ``oracle_frame``); K4's graph-replay check
-(``k4_graph_replays``), which ``chip_smoke.py`` and the card's tests
-share.
+``assert_no_flags``, ``oracle_frame``); K4's and K5's graph-replay
+checks (``k4_graph_replays``, ``k5_graph_replays``), which
+``chip_smoke.py`` and the card's tests share.
 """
 
 from __future__ import annotations
@@ -227,10 +227,12 @@ GROUPS = (("torch.cat copies", "CatArrayBatchedCopy"),
           ("elementwise kernels", "elementwise_kernel"),
           ("gathers", "gather"), ("K1", "raster_tile_kernel"),
           ("K2", "setup_pack_kernel"), ("K3", "terrain_vertex_kernel"),
-          ("K4", "straddle_"),
+          ("K4", "straddle_"), ("K5", "bin_tiles_"),
           ("host-to-device copies", "Memcpy HtoD"))
-# the sorts of binning and of the straddler selection (cub's radix
-# sorts, torch's in-place sorts of short rows)
+# the sorts of binning's plain version and of the straddler selection
+# (cub's radix sorts, torch's in-place sorts of short rows); K5's kernels
+# (bin_tiles_count, _place, _order) match neither this nor
+# elementwise_kernel
 SORTS = ("sorts", "Sort")
 
 
@@ -387,5 +389,67 @@ def k4_graph_replays(device, replays: int = 60,
     st.K4.launches = launches
     if dirty or not store:
         raise AssertionError(f"K4's graph scratch holds {dirty} nonzero "
+                             f"words after the replays")
+    return bad
+
+
+def k5_graph_replays(device, replays: int = 30, records: int = 20_000,
+                     frame=(1080, 1920), band=(270, 540)) -> int:
+    """K5 captured in one CUDA graph as a frame holds it (two passes over
+    the same ``records`` boxes of a ``frame`` (H, W): the whole frame and
+    its band ``band`` = (height, y0), on one stream, its scratch owned by
+    the graph as ``renderer/compiled.py`` owns it), replayed ``replays``
+    times with the boxes rewritten in place before each replay
+    (``trisets.bin_boxes`` by ``BIN_REPLAYS``); after each replay the four
+    results of both passes against ``bin_tiles_reference`` on that
+    replay's inputs. Returns the values that differ, and raises if the
+    graph does not hold exactly two chains or leaves its scratch dirty.
+    K5's launch count is left as it was."""
+    import torch
+
+    from ..ops import binning
+    from ..ops.raster import pair_capacity
+    from .trisets import BIN_REPLAYS, bin_boxes
+    H, W = frame
+    valid = torch.zeros(records, dtype=torch.bool, device=device)
+    bbox = torch.zeros((4, records), dtype=torch.float32, device=device)
+    cap = pair_capacity(records)
+    passes = ((H, 0), band)
+    store, graph = {}, torch.cuda.CUDAGraph()
+    launches = binning.K5.launches
+
+    def frame_passes():
+        return [binning.bin_tiles(valid, bbox, h, W, y0, cap)
+                for h, y0 in passes]
+
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side), binning.graph_scratch(store):
+            frame_passes()                  # the warm-up makes the scratch
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        before = binning.K5.launches
+        with binning.graph_scratch(store), torch.cuda.graph(graph):
+            outs = frame_passes()
+        held = binning.K5.launches - before
+        if held != len(passes):
+            raise AssertionError(f"the graph holds {held} K5 chains for "
+                                 f"{len(passes)} passes")
+        bad = 0
+        for r in range(replays):
+            v, b = bin_boxes(records, r, H, W,
+                             **BIN_REPLAYS[r % len(BIN_REPLAYS)])
+            valid.copy_(torch.from_numpy(v))
+            bbox.copy_(torch.from_numpy(b))
+            graph.replay()
+            for (h, y0), got in zip(passes, outs):
+                want = binning.bin_tiles_reference(valid, bbox, h, W, y0,
+                                                   cap)
+                bad += sum(int((x != y).sum()) for x, y in zip(got, want))
+        dirty = sum(int(t.count_nonzero()) for t in store.values())
+    binning.K5.launches = launches
+    if dirty or not store:
+        raise AssertionError(f"K5's graph scratch holds {dirty} nonzero "
                              f"words after the replays")
     return bad

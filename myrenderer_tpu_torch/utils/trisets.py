@@ -1,4 +1,4 @@
-"""Triangle sets and inputs for the kernels' checks (K1-K4), made with
+"""Triangle sets and inputs for the kernels' checks (K1-K5), made with
 numpy from a seed:
 the CPU parity tests (``tests/test_torch_*.py``) and ``chip_smoke.py`` on
 the card draw the same sets from here. Imports numpy only."""
@@ -230,3 +230,98 @@ def terrain_inputs(size, instances, seed):
     uniforms[:, 16] = size
     worlds = rng.normal(0, 1, (instances, 4, 4)).astype(np.float32)
     return heights, uniforms, worlds
+
+
+def bin_boxes(n, seed, H, W, big=0.05, off=0.0, nan=0.0, invalid=0.0,
+              full=0, crowd=0.0, inverted=0.0):
+    """Inputs of K5 (binning) for an H x W frame: (valid bool[n], bbox
+    f32[4, n] as min u, max u, min v, max v). Most boxes are a few pixels
+    wide, a fraction ``big`` up to one and a half frames; a fifth sit on
+    whole pixels and a tenth on tile borders (the floor and ceil edges);
+    a fraction ``off`` lies wholly outside the frame (left, right, above
+    or below), ``nan`` has one NaN coordinate, ``invalid`` is flagged
+    invalid, ``full`` records spread over the set cover every tile, and a
+    fraction ``crowd`` are boxes of a pixel or two inside the 16x16 tile
+    at the frame's centre (thousands of records in one tile). A fraction
+    ``inverted`` has its min and max swapped on one axis or both, and
+    with it the last box is one inverted on both axes across many tiles
+    (rects empty on an axis: no pair)."""
+    rng = np.random.default_rng(seed)
+    cx = rng.uniform(-0.05 * W, 1.05 * W, n)
+    cy = rng.uniform(-0.05 * H, 1.05 * H, n)
+    large = rng.uniform(size=n) < big
+    w = np.where(large, rng.uniform(0, 1.5 * W, n), rng.exponential(6.0, n))
+    h = np.where(large, rng.uniform(0, 1.5 * H, n), rng.exponential(6.0, n))
+    box = np.stack([cx - w / 2, cx + w / 2, cy - h / 2, cy + h / 2])
+    packed = rng.uniform(size=n) < crowd
+    corner = np.asarray([[W // 32 * 16], [H // 32 * 16]], np.float64)
+    lo = corner + rng.uniform(0.5, 14.0, (2, n))
+    hi = lo + rng.uniform(0.0, 1.5, (2, n))
+    box[:, packed] = np.stack([lo[0], hi[0], lo[1], hi[1]])[:, packed]
+    snap = rng.uniform(size=n)
+    box[:, snap < 0.2] = np.round(box[:, snap < 0.2])
+    box[:, snap < 0.1] = np.round(box[:, snap < 0.1] / 16.0) * 16.0
+    gone = np.nonzero(rng.uniform(size=n) < off)[0]
+    side = rng.integers(0, 4, gone.size)
+    for k, (lo, hi, extent) in enumerate(((0, 1, W), (0, 1, W),
+                                          (2, 3, H), (2, 3, H))):
+        g = gone[side == k]
+        shift = (-box[hi, g] - 1.0) if k % 2 == 0 else (extent - box[lo, g])
+        box[lo, g] += shift
+        box[hi, g] += shift
+    bad = np.nonzero(rng.uniform(size=n) < nan)[0]
+    box[rng.integers(0, 4, bad.size), bad] = np.nan
+    if inverted:
+        flip = np.nonzero(rng.uniform(size=n) < inverted)[0]
+        axes = rng.integers(0, 3, flip.size)       # u, v or both
+        for a, (lo, hi) in enumerate(((0, 1), (2, 3))):
+            g = flip[(axes == a) | (axes == 2)]
+            box[lo, g], box[hi, g] = box[hi, g].copy(), box[lo, g].copy()
+        box[:, -1] = [0.8 * W, 0.2 * W, 0.7 * H, 0.3 * H]
+    if full:
+        every = rng.choice(n, size=min(full, n), replace=False)
+        box[:, every] = np.asarray([[-3.5], [W + 2.5], [-7.0], [H + 1.0]])
+    valid = rng.uniform(size=n) >= invalid
+    return valid, box.astype(np.float32)
+
+
+# K5's cases (``tests/test_torch_binning.py``, ``chip_smoke.py``): name ->
+# (records, seed, frame (H, W), band (height, y0) or None for the frame,
+# ``bin_boxes`` keywords)
+BIN_CASES = {
+    "random": (3000, 1, (200, 300), None, {}),
+    "off the frame, NaN and invalid": (3000, 2, (200, 300), None,
+                                       {"off": 0.2, "nan": 0.1,
+                                        "invalid": 0.2}),
+    "a box over every tile": (500, 3, (200, 300), None, {"full": 1}),
+    "ragged frame": (2000, 4, (93, 161), None, {"big": 0.2, "full": 2}),
+    "band at y0 = 64": (3000, 5, (256, 300), (64, 64), {"nan": 0.05}),
+    "last band, ragged": (3000, 6, (250, 300), (58, 192), {"off": 0.1}),
+    "one record": (1, 7, (64, 64), None, {}),
+    "crowded": (5000, 8, (48, 48), None, {"big": 0.5}),
+    "one tile of 5,000": (8000, 10, (96, 128), None, {"big": 0.0,
+                                                     "crowd": 0.65}),
+    "inverted boxes": (3000, 11, (200, 300), None, {"big": 0.3,
+                                                    "inverted": 0.3}),
+}
+
+
+def bin_case(name):
+    """(valid, bbox, height, width, y0) of ``BIN_CASES[name]``: the band
+    to bin and the frame's boxes."""
+    n, seed, (H, W), band, kw = BIN_CASES[name]
+    valid, bbox = bin_boxes(n, seed, H, W, **kw)
+    height, y0 = (H, 0) if band is None else band
+    return valid, bbox, height, W, y0
+
+
+# the graph-replay check of K5 (``profiling.k5_graph_replays``): each
+# replay rewrites its boxes with the next of these ``bin_boxes`` keywords:
+# small boxes, a few big ones and a crowded tile,
+# off-frame and NaN boxes, every row invalid, boxes over every tile, a
+# tile past the block's shared memory, inverted boxes, and the default
+# (overflowing)
+BIN_REPLAYS = ({"big": 0.0}, {"big": 0.002, "crowd": 0.05},
+               {"off": 0.5, "nan": 0.2}, {"invalid": 1.0},
+               {"full": 3, "big": 0.0}, {"big": 0.0, "crowd": 0.3},
+               {"big": 0.05, "inverted": 0.3}, {})

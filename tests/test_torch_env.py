@@ -26,6 +26,7 @@ PORT_MODULES = [
     "myrenderer_tpu_torch.geometry",
     "myrenderer_tpu_torch.geometry.device_tri",
     "myrenderer_tpu_torch.ops",
+    "myrenderer_tpu_torch.ops.binning",
     "myrenderer_tpu_torch.ops.raster_ref",
     "myrenderer_tpu_torch.ops.sampling",
     "myrenderer_tpu_torch.parallel",
