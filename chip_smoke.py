@@ -129,16 +129,23 @@ at the first failed phase:
    the card, bit for bit in the index, starts, counts and flag: the CPU
    tests' random boxes (``trisets.BIN_CASES``: off the frame, NaN,
    invalid, a box over every tile, ragged frames, bands at y0 > 0, one
-   record, a crowded frame), each also starved to a third of its pairs;
-   spans summing past 2^31; every binning call of the 1080p demo's and the
-   4K stress scene's eager frame 1 (captured at ``bin_tiles``), as it is,
-   starved to a third of its pairs and cut into four bands; K5 as a CUDA
-   graph of two passes replayed 30 times with its boxes rewritten in place
-   (``profiling.k5_graph_replays``); K5 alone a frame's calls at a time
-   (warm, L2-flushed) beside its plain version, its bytes bound and
-   torch.sort over the pass's int64 tile keys; its chains counted from 0
-   around every path, required on every path that bins (phases 5 and 6:
-   one a frame), and no sort kernel in a single-device frame's trace
+   record, a crowded frame, one triangle over most of a 1080p frame among
+   20,000 small ones), each also starved to a third of its pairs; spans
+   summing past 2^31; a pass of the 8K frame (129,600 tiles) on the
+   card's whole residency (``K5.resident_blocks`` blocks); every binning
+   call of the 1080p demo's and the 4K stress scene's eager frame 1
+   (captured at ``bin_tiles``), as it is, starved to a third of its pairs
+   and cut into four bands; the spans past 2^31 and the stress call on
+   one block an SM (more records a block than its record cache holds),
+   each as it is and starved; K5 as a CUDA graph of two passes replayed 30
+   times with its boxes rewritten in place (``profiling.k5_graph_replays``);
+   the seven phases of one launch on each cell's call (``K5.phase_times``);
+   K5 alone a frame's calls at a time (warm, L2-flushed) beside its plain
+   version, its bytes bound and torch.sort over the pass's int64 tile
+   keys; its launches
+   counted from 0 around every path, required on every path that bins
+   (phases 5 and 6: one a frame), no sort kernel in a single-device
+   frame's trace and one K5 kernel a raster pass in a graph replay's
    (phase 11);
 17. a JSON line of the kernels (K1-K5), the card line, and the last line
    {"ok": true, "device": {...}}.
@@ -185,8 +192,8 @@ import torch
 
 from myrenderer_tpu_torch.utils.profiling import (
     SORTS, assert_no_flags, capture_k1_inputs, frames_equal, k1_bound,
-    k4_graph_replays, k5_graph_replays, oracle_frame, print_groups,
-    profile_frames, sync_all, syncs_per_frame, trimmed)
+    k4_graph_replays, k5_graph_replays, on_device, oracle_frame,
+    print_groups, profile_frames, sync_all, syncs_per_frame, trimmed)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TIMED_FRAMES = 60
@@ -1095,12 +1102,23 @@ def uncapturable_raises():
 def no_sort(label: str, by_name: dict):
     """A single-device frame's trace holds no sort (K4 selects the
     straddlers and K5 bins without one); a mesh frame still sorts its
-    shards' straddler candidates, and its sorts are printed."""
+    shards' straddler candidates, and its sorts are printed. A graph
+    replay's trace holds one K5 kernel a raster pass (one a frame, one a
+    band on bands); an eager frame's cooperative launch does not show in
+    the trace."""
     sorts = {k: n for k, (_t, n) in by_name.items() if SORTS[1] in k}
     print(f"  sort kernels in the {label} frames: {sum(sorts.values())}")
     if sorts and "bands" not in label:
         raise AssertionError(f"{label}: sort kernels in the trace: "
                              f"{sorted(sorts)}")
+    if "graph" in label:
+        k5 = sum(n for k, (_t, n) in by_name.items() if "bin_tiles_" in k)
+        passes = (4 if "4 bands" in label else 1) * PROFILE_FRAMES
+        print(f"  K5 kernels in the {label} frames: {k5} for {passes} "
+              f"raster passes")
+        if k5 != passes:
+            raise AssertionError(f"{label}: {k5} K5 kernels for {passes} "
+                                 f"raster passes")
 
 
 def compiled_frame_phase(card: str, k1_alone: dict) -> dict:
@@ -1807,13 +1825,13 @@ def k3_k4_phase(dev, card: str, flush) -> dict:
     return {"max_abs_err": err, "shapes": shapes}
 
 
-def k5_check(call):
-    """K5 and its plain version on one call's inputs: (values that
-    differ, the largest absolute difference over the four results, each
-    an integer or a flag)."""
+def k5_check(call, blocks=None):
+    """K5 (on ``blocks`` blocks, else its own grid) and its plain version
+    on one call's inputs: (values that differ, the largest absolute
+    difference over the four results, each an integer or a flag)."""
     from myrenderer_tpu_torch.ops import binning
     launches = binning.K5.launches
-    got = binning.K5(**call)
+    got = binning.K5(**call, blocks=blocks)
     binning.K5.launches = launches
     want = binning.bin_tiles_reference(**call)
     torch.cuda.synchronize()
@@ -1842,23 +1860,30 @@ def k5_phase(dev, card: str, flush) -> dict:
     """Phase 16: K5 against its plain version, bit for bit, on random
     boxes, on the 1080p demo's and the 4K stress scene's frame-1 binning
     calls (as they are, starved to a third of their pairs, and cut into
-    four bands) and as graph replays; K5 alone at those calls' shapes
+    four bands), on one block an SM where a block's records outgrow its
+    record cache (the spans past 2^31 and the stress call), and as graph
+    replays; K5 alone at those calls' shapes
     beside its plain version, its bound and torch.sort over the pass's
     int64 tile keys."""
     from myrenderer_tpu_torch.app.demo import DemoApp
     from myrenderer_tpu_torch.app.stress import StressApp
     from myrenderer_tpu_torch.ops import binning, raster
-    from myrenderer_tpu_torch.utils.trisets import BIN_CASES, bin_case
+    from myrenderer_tpu_torch.utils.trisets import (BIN_CASES, bin_boxes,
+                                                    bin_case)
 
     worst = [0.0]
+    # one block an SM: more records a block than the 2,048 whose rects a
+    # block keeps in shared memory, so its compaction reads the boxes again
+    sms = binning.K5.occupancy(dev)[1]
 
-    def held(call, label):
-        bad, err = k5_check(call)
+    def held(call, label, blocks=None):
+        bad, err = k5_check(call, blocks)
         worst[0] = max(worst[0], err)
         R = call["valid"].shape[0]
+        grid = "" if blocks is None else f", {blocks} blocks"
         print(f"  K5 {label} ({R} records, {call['height']} x "
               f"{call['width']} from row {call['y0']}, capacity "
-              f"{call['capacity']}): {bad} values differ, largest "
+              f"{call['capacity']}{grid}): {bad} values differ, largest "
               f"difference {err}")
         if bad:
             raise AssertionError(f"K5 differs from its plain version "
@@ -1876,13 +1901,46 @@ def k5_phase(dev, card: str, flush) -> dict:
         held(call, f"random boxes, {name}")
         held({**call, "capacity": max(pairs_of(call) // 3, 1)},
              f"random boxes, {name}, starved to a third of its pairs")
+    def uncached(call, label):
+        R = call["valid"].shape[0]
+        if R <= 2048 * sms:
+            raise AssertionError(f"{label}: {R} records on {sms} blocks fit "
+                                 "the blocks' record caches")
+        held(call, f"{label}, one block an SM", sms)
+        held({**call, "capacity": max(pairs_of(call) // 3, 1)},
+             f"{label}, one block an SM, starved to a third of its pairs",
+             sms)
+
     R = 2**31 // 4096 + 1
-    held({"valid": torch.ones(R, dtype=torch.bool, device=dev),
-          "bbox": tuple(torch.tensor([-1.0, 1030.0, -1.0, 1030.0],
-                                     device=dev)[:, None].expand(4, R)),
-          "height": 1024, "width": 1024, "y0": 0,
-          "capacity": raster.pair_capacity(R)},
-         "every record over every tile, spans summing to 2^31 + 4,096")
+    call = {"valid": torch.ones(R, dtype=torch.bool, device=dev),
+            "bbox": tuple(torch.tensor([-1.0, 1030.0, -1.0, 1030.0],
+                                       device=dev)[:, None].expand(4, R)),
+            "height": 1024, "width": 1024, "y0": 0,
+            "capacity": raster.pair_capacity(R)}
+    label = "every record over every tile, spans summing to 2^31 + 4,096"
+    held(call, label)
+    uncached(call, label)
+    # the 8K frame on every block the card holds at once (the cooperative
+    # launch's largest grid), its 127 chunks of 1,024 tiles
+    resident = binning.K5.resident_blocks(dev)
+    valid, bbox = bin_boxes(20_000, 14, 4320, 7680, big=0.01, full=1)
+    call = {"valid": torch.from_numpy(valid).to(dev),
+            "bbox": tuple(torch.from_numpy(bbox).to(dev)),
+            "height": 4320, "width": 7680, "y0": 0,
+            "capacity": raster.pair_capacity(valid.size)}
+    launches = binning.K5.launches
+    got = binning.K5(**call, blocks=resident)
+    binning.K5.launches = launches
+    want = binning.bin_tiles_reference(**call)
+    torch.cuda.synchronize()
+    bad, err = against_plain(got, want)
+    worst[0] = max(worst[0], float(max(
+        (a.long() - b.long()).abs().max() for a, b in zip(got, want))))
+    print(f"  K5 on the 8K frame (20,000 boxes, 129,600 tiles) on all "
+          f"{resident} resident blocks: {bad} values differ")
+    if bad:
+        raise AssertionError("K5 differs from its plain version on the "
+                             "card's whole residency")
     bad = k5_graph_replays(dev, replays=K5_REPLAYS)
     print(f"  K5 as a CUDA graph of two passes (20,000 boxes of a 1920 x "
           f"1080 frame, the frame and its band from row 540), "
@@ -1891,7 +1949,7 @@ def k5_phase(dev, card: str, flush) -> dict:
     if bad:
         raise AssertionError("K5's graph replays differ from its plain "
                              "version")
-    shapes = {}
+    shapes, phases = {}, {}
     for cell, make in (("demo_1080p", lambda: DemoApp(1920, 1080,
                                                        device="cuda")),
                        ("stress_4k", lambda: StressApp(device="cuda"))):
@@ -1913,9 +1971,22 @@ def k5_phase(dev, card: str, flush) -> dict:
             for k in range(4):
                 held({**c, "height": H // 4, "y0": k * H // 4},
                      f"{cell} frame 1, band {k} of 4")
+            if c["valid"].shape[0] > 2048 * sms:
+                uncached(c, f"{cell} frame 1")
         shapes[cell] = time_alone("K5", binning.K5,
                                   binning.bin_tiles_reference, calls, flush,
                                   k5_bound, f"{cell} frame-1 calls", card)
+        # the phases of one launch (the median of five) on the cell's
+        # largest call
+        big = max(calls, key=lambda c: c["valid"].shape[0])
+        launches = binning.K5.launches
+        phases[cell] = binning.K5.phase_times(**big)
+        binning.K5.launches = launches
+        blocks = binning.K5.blocks(dev, big["valid"].shape[0])
+        print(f"  K5 at {cell}'s largest call, {blocks} blocks: phases of "
+              f"one launch (median of 5), ms: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in phases[cell].items())
+              + f"; card: {card}")
         # torch.sort over the int64 tile keys of the pass's C slots, as the
         # plain version sorts them
         keys = [binning._slot_tiles(binning._spans(
@@ -1935,12 +2006,11 @@ def k5_phase(dev, card: str, flush) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     by_path = {k: v for k, v in K5_BY_PATH.items() if "(" not in k}
-    print(f"  K5 chains by path (each counted from 0 around it): {by_path}; "
-          f"count kernel blocks resident at once: "
-          f"{binning.K5.resident_blocks(dev)} (a band's 1,024-tile scan "
-          f"chunks may not pass it); card: {card}")
-    return {"max_abs_err": worst[0], "shapes": shapes,
-            "random_cases": len(BIN_CASES)}
+    print(f"  K5 launches by path (each counted from 0 around it): "
+          f"{by_path}; K5.resident_blocks (the largest grid its cooperative "
+          f"launch takes): {resident}; card: {card}")
+    return {"max_abs_err": worst[0], "shapes": shapes, "phases_ms": phases,
+            "random_cases": len(BIN_CASES), "resident_blocks": resident}
 
 
 def main() -> int:
@@ -2067,7 +2137,7 @@ def main() -> int:
         raise AssertionError(f"K4 launched {K4_BY_PATH['demo_1080p']} "
                              f"times in {TIMED_FRAMES} frames")
     if K5_BY_PATH["demo_1080p"] != TIMED_FRAMES:
-        raise AssertionError(f"K5 chained {K5_BY_PATH['demo_1080p']} "
+        raise AssertionError(f"K5 launched {K5_BY_PATH['demo_1080p']} "
                              f"times in {TIMED_FRAMES} one-pass frames")
     fb = app.window.framebuffer
     if fb.shape != (1080, 1920, 4) or not bool(torch.isfinite(fb).all()):
@@ -2083,7 +2153,7 @@ def main() -> int:
           f"{TIMED_FRAMES} frames, {path_launches} K1 launches, "
           f"{K2_BY_PATH['demo_1080p']} K2 launches, "
           f"{K3_BY_PATH['demo_1080p']} K3, {K4_BY_PATH['demo_1080p']} K4, "
-          f"{K5_BY_PATH['demo_1080p']} K5 chains; "
+          f"{K5_BY_PATH['demo_1080p']} K5 launches; "
           f"plain-version path (eager): {plain_ms:.3f} ms/frame "
           f"({plain_ms_a:.3f}, {plain_ms_b:.3f}); card: {card}")
 
@@ -2151,7 +2221,7 @@ def main() -> int:
         raise AssertionError(f"K4 launched {K4_BY_PATH['stress_4k']} times "
                              f"in {STRESS_FRAMES} stress frames")
     if K5_BY_PATH["stress_4k"] != STRESS_FRAMES:
-        raise AssertionError(f"K5 chained {K5_BY_PATH['stress_4k']} times "
+        raise AssertionError(f"K5 launched {K5_BY_PATH['stress_4k']} times "
                              f"in {STRESS_FRAMES} one-pass stress frames")
     fb = stress.window.framebuffer
     if fb.shape != (2160, 3840, 4) or not bool(torch.isfinite(fb).all()):
@@ -2174,7 +2244,7 @@ def main() -> int:
           f"{stress_launches} K1 launches, {K2_BY_PATH['stress_4k']} K2 "
           f"launches, {K3_BY_PATH['stress_4k']} K3, "
           f"{K4_BY_PATH['stress_4k']} K4, {K5_BY_PATH['stress_4k']} K5 "
-          f"chains; plain-version path: "
+          f"launches; plain-version path: "
           f"{stress_plain_ms:.3f} ms/frame over {STRESS_PLAIN_FRAMES} "
           f"frames, last frame bit-equal to the K1 path's; card: {card}")
     shapes["stress_4k"] = time_k1(s_inputs, 50, 2,
@@ -2554,7 +2624,7 @@ def main() -> int:
         # no Pallas kernel: the JAX package's bin_packed, whose sort XLA
         # runs
         "replaces": "myrenderer_tpu/ops/raster_pallas.py:321",
-        # one count a chain of three kernels (count, place, order)
+        # one launch a raster pass
         "launches": sum(k5_by_path.values()),
         "launches_by_path": k5_by_path,
         "max_abs_err": k5["max_abs_err"],
@@ -2569,6 +2639,8 @@ def main() -> int:
         "sort_keys_ms": k5["shapes"]["demo_1080p"]["sort_keys_ms"],
         "shapes": k5["shapes"],
         "random_cases": k5["random_cases"],
+        "resident_blocks": k5["resident_blocks"],
+        "phases_ms": k5["phases_ms"],
         "build_s": binning.K5.build_seconds,
     }]}))
     print(card)

@@ -16,19 +16,26 @@ fallback from one to the other. The kernel is built at first use like K1
 (``cuda_build.build_library``) and bound with ``ctypes``. It reads nothing
 back to the host, so a frame that bins stays one CUDA graph replay.
 
-**Launches.** A call on the card is one chain of three kernels (count,
-place, order); ``K5.launches`` counts chains. A pass of no records
-launches nothing: its results are zeros, as the plain version's are.
+**Launches.** A call on the card is one cooperative launch of one kernel:
+a persistent grid (:meth:`BinTilesKernel.blocks`, every block resident
+at once)
+walks the records, the pairs and the tiles in seven phases with grid-wide
+barriers between them; ``K5.launches`` counts launches. A pass of no
+records launches nothing: its results are zeros, as the plain version's
+are.
 
-**Scratch.** The chain counts pairs into a word a tile and ranks its
-chunks through counters and status words in device memory. They must be
-zero when it starts, and it leaves them zeroed, so a scratch is zeroed
-once, when it is made, and never by a launch or a graph node. Two chains
-that run at once must not share one: a scratch belongs to one (device,
-stream) for eager calls, and to one CUDA graph for the calls captured into
-it (:func:`graph_scratch`, which ``renderer/compiled.py`` opens around a
-frame's warm-up and capture). A graph captured outside it gets a scratch
-of its own a call, zeroed by a memset node of the graph.
+**Scratch.** The launch counts pairs into a word a tile, sums each
+block's records and tiles and waits at its barriers through counters in
+device memory. They must be zero when it starts, and it leaves them
+zeroed, so a scratch is zeroed once, when it is made, and never by a
+launch or a graph node. Two launches that run at once must not share
+one: a scratch belongs to one (device, stream) for eager calls, and to
+one CUDA graph for the calls captured into it (:func:`graph_scratch`,
+which ``renderer/compiled.py`` opens around a frame's warm-up and
+capture). A graph captured outside it gets a scratch of its own a call,
+zeroed by a memset node of the graph. The list of live records
+(``int32[R, 4]``) is a workspace the launch writes before it reads it,
+made with the outputs.
 """
 
 from __future__ import annotations
@@ -43,10 +50,7 @@ from .cuda_build import CSRC, ZeroedScratch, build_library
 from .raster_cuda import TILE_H, TILE_W
 
 _SOURCE = os.path.join(CSRC, "bin_tiles.cu")
-# tiles a band may have. On the card a band is also held to the count
-# kernel's residency: its last blocks scan the tile counts in chunks of
-# 1,024 tiles, each chunk's block waiting for every other block to finish,
-# so the chunks' blocks must fit on the card at once (K5.resident_blocks)
+# tiles a band may have
 MAX_TILES = 2**20
 
 
@@ -133,10 +137,15 @@ def bin_tiles_reference(valid, bbox, height: int, width: int, y0: int,
     return _expand(_spans(valid, bbox, height, width, y0), capacity)
 
 
+# the seven phases of a launch, as K5.phase_times names their times
+PHASES = ("records", "compaction", "count", "tile sums", "tile scan",
+          "place", "order")
+
+
 class BinTilesKernel:
     """The built K5 library, its launch count and its scratch.
-    ``launches`` grows by one at each launch of the kernel chain and
-    nowhere else."""
+    ``launches`` grows by one at each launch of the kernel and nowhere
+    else."""
 
     def __init__(self):
         self.launches = 0
@@ -144,22 +153,34 @@ class BinTilesKernel:
         self.build_seconds: Optional[float] = None
         self.build_log = ""
         self.scratch = ZeroedScratch()
-        self._resident = {}
+        self._occupancy = {}
+
+    def occupancy(self, device):
+        """(blocks an SM of ``device`` holds at once, its SMs)."""
+        index = torch.device(device).index or 0
+        if index not in self._occupancy:
+            lib = self.build()
+            out = [ctypes.c_int(0) for _ in range(2)]
+            with torch.cuda.device(index):
+                err = lib.bin_tiles_occupancy(*(ctypes.byref(v) for v in out))
+            if err != 0 or out[0].value < 1:
+                raise RuntimeError(f"K5's occupancy query failed: CUDA "
+                                   f"error {err}, {out[0].value} blocks an "
+                                   "SM")
+            self._occupancy[index] = tuple(v.value for v in out)
+        return self._occupancy[index]
 
     def resident_blocks(self, device) -> int:
-        """The count kernel's blocks that ``device`` holds at once: the
-        most scan chunks (of 1,024 tiles) a band may have there."""
-        index = torch.device(device).index or 0
-        if index not in self._resident:
-            lib = self.build()
-            out = ctypes.c_int(0)
-            with torch.cuda.device(index):
-                err = lib.bin_tiles_resident_blocks(ctypes.byref(out))
-            if err != 0:
-                raise RuntimeError(f"K5's occupancy query failed: CUDA "
-                                   f"error {err}")
-            self._resident[index] = out.value
-        return self._resident[index]
+        """The kernel's blocks that ``device`` holds at once: the largest
+        grid its cooperative launch accepts."""
+        per_sm, sms = self.occupancy(device)
+        return per_sm * sms
+
+    def blocks(self, device, records: int) -> int:
+        """The grid a launch over ``records`` records on ``device`` takes
+        (``bin_tiles_grid``: a block for each 512 records, one to four an
+        SM, never more than the SMs hold at once)."""
+        return self.build().bin_tiles_grid(records, *self.occupancy(device))
 
     def build(self) -> ctypes.CDLL:
         """Compile (once per source and flag set) and load the kernel."""
@@ -170,12 +191,12 @@ class BinTilesKernel:
         lib.bin_tiles_scratch_words.argtypes = [i32, i32]
         lib.bin_tiles_scratch_words.restype = i64
         lib.bin_tiles_launch.argtypes = ([p] * 4 + [i64] * 4 + [p, i64]
-                                         + [i32] * 6 + [i64] + [p] * 6)
+                                         + [i32] * 6 + [i64, i32] + [p] * 8)
         lib.bin_tiles_launch.restype = ctypes.c_int
-        lib.bin_tiles_resident_blocks.argtypes = [p]
-        lib.bin_tiles_resident_blocks.restype = ctypes.c_int
-        lib.bin_tiles_scan_blocks.argtypes = [i32]
-        lib.bin_tiles_scan_blocks.restype = i32
+        lib.bin_tiles_occupancy.argtypes = [p] * 2
+        lib.bin_tiles_occupancy.restype = ctypes.c_int
+        lib.bin_tiles_grid.argtypes = [i64, i32, i32]
+        lib.bin_tiles_grid.restype = ctypes.c_int
         lib.bin_tiles_setup.argtypes = []
         lib.bin_tiles_setup.restype = ctypes.c_int
         err = lib.bin_tiles_setup()
@@ -185,9 +206,17 @@ class BinTilesKernel:
         return lib
 
     def __call__(self, valid, bbox, height: int, width: int, y0: int,
-                 capacity: int):
+                 capacity: int, blocks: Optional[int] = None):
         """:func:`bin_tiles`' results for CUDA tensors (checked by the
-        caller)."""
+        caller). ``blocks`` overrides the grid (a cooperative launch: the
+        runtime refuses more blocks than the card holds at once)."""
+        return self._launch(valid, bbox, height, width, y0, capacity, blocks,
+                            None)
+
+    def _launch(self, valid, bbox, height, width, y0, capacity, blocks,
+                times):
+        """One launch; ``times``, a CUDA int64 tensor of 7 + blocks or
+        None, takes its globaltimer stamps (:meth:`phase_times`)."""
         R = valid.shape[0]
         nty, ntx = tile_grid(height, width)
         NT = nty * ntx
@@ -199,14 +228,11 @@ class BinTilesKernel:
                         zeros, zeros.clone(),
                         torch.zeros((), dtype=torch.bool, device=dev))
             lib = self.build()
-            chunks = lib.bin_tiles_scan_blocks(NT)
-            if chunks > self.resident_blocks(dev):
-                raise ValueError(
-                    f"a band of {NT} tiles needs {chunks} resident blocks "
-                    f"of K5's count kernel; {dev} holds "
-                    f"{self.resident_blocks(dev)}")
-            scratch = self.scratch.get(dev,
-                                       lib.bin_tiles_scratch_words(R, NT))
+            if blocks is None:
+                blocks = self.blocks(dev, R)
+            scratch = self.scratch.get(
+                dev, lib.bin_tiles_scratch_words(blocks, NT))
+            live = torch.empty((R, 4), dtype=torch.int32, device=dev)
             index = torch.empty(capacity, dtype=torch.int32, device=dev)
             starts = torch.empty(NT, dtype=torch.int32, device=dev)
             counts = torch.empty(NT, dtype=torch.int32, device=dev)
@@ -215,20 +241,40 @@ class BinTilesKernel:
             err = lib.bin_tiles_launch(
                 *(b.data_ptr() for b in bbox), *(b.stride(0) for b in bbox),
                 valid.data_ptr(), valid.stride(0), R, width, y0,
-                nty * TILE_H, ntx, NT, capacity, scratch.data_ptr(),
-                index.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-                overflow.data_ptr(), handle)
+                nty * TILE_H, ntx, NT, capacity, blocks, scratch.data_ptr(),
+                live.data_ptr(), index.data_ptr(), starts.data_ptr(),
+                counts.data_ptr(), overflow.data_ptr(),
+                None if times is None else times.data_ptr(), handle)
         if err != 0:
-            raise RuntimeError(f"K5 launch failed: CUDA error {err}")
+            raise RuntimeError(f"K5 launch of {blocks} blocks failed: CUDA "
+                               f"error {err}")
         self.launches += 1
         return index, starts, counts, overflow
+
+    def phase_times(self, valid, bbox, height: int, width: int, y0: int,
+                    capacity: int, launches: int = 5):
+        """The phases (:data:`PHASES`) of ``launches`` launches: {name: ms},
+        the median over the launches of each, from the globaltimer stamps
+        block 0 takes at the start and after each barrier, the last phase up
+        to the latest block's end. The launches count."""
+        blocks = self.blocks(valid.device, valid.shape[0])
+        runs = []
+        for _ in range(launches):
+            times = torch.zeros(7 + blocks, dtype=torch.int64,
+                                device=valid.device)
+            self._launch(valid, bbox, height, width, y0, capacity, blocks,
+                         times)
+            stamps = times.tolist()
+            runs.append(stamps[:7] + [max(stamps[7:])])
+        return {name: sorted((r[k + 1] - r[k]) / 1e6 for r in runs)[
+            launches // 2] for k, name in enumerate(PHASES)}
 
 
 K5 = BinTilesKernel()
 
 
 def graph_scratch(store: dict):
-    """A context inside which K5's chains take their scratch from
+    """A context inside which K5's launches take their scratch from
     ``store`` (a dict the caller keeps as long as its CUDA graph), one a
     device: made, zeroed, by the eager warm-up before the capture, and
     reused by the capture, so the graph holds no memset of it."""
@@ -240,8 +286,7 @@ def check(valid, bbox, height: int, width: int, y0: int, capacity: int):
     bool[R] and four f32[R] box vectors (min u, max u, min v, max v) on
     one cuda or cpu device, a band of at least one row and column from
     row y0 >= 0 and of at most MAX_TILES tiles, and 0 <= capacity <
-    2^31. (On a card, K5 also refuses a band of more 1,024-tile chunks
-    than ``K5.resident_blocks``.)"""
+    2^31."""
     dev = valid.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"K5 runs on cuda or cpu tensors, not {dev}")

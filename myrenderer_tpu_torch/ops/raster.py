@@ -9,7 +9,7 @@ raster pass:
    record) pairs go into a static capacity of C slots (the reference's
    stream capacity, :func:`pair_capacity`) as CSR ``index`` / ``starts``
    / ``counts``, records in ascending order within a tile. On the card
-   that is one chain of hand-written kernels with no sort; on the CPU its
+   that is one launch of a hand-written kernel with no sort; on the CPU its
    plain version (every slot expanded, a stable sort by tile). Shapes
    depend only on the record count, nothing is read back to the host,
    and a pass of N row bands has N binnings and no sync. When the pairs

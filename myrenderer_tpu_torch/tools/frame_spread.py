@@ -22,7 +22,7 @@ warm-up frames and then measures, on the same graph replays:
   the spin (CUDA events), with no gap left by the host;
 - from ``torch.profiler`` over 20 frames: each frame's kernel time
   (``busy_ms``, frames split at K1's launch), and K5's time in each
-  replay (its three kernels summed): min, median and max;
+  replay (its one kernel a raster pass): min, median and max;
 - the card's SM clock, power draw and temperature, sampled by
   ``nvidia-smi`` every 50 ms through the timed runs.
 
@@ -111,7 +111,6 @@ def child(cell: str) -> dict:
     kernels = sorted((e for e in prof.events() if on_device(e)),
                      key=lambda e: e.time_range.start)
     busy, k5, frame = [], [], None
-    chain = []
     for e in kernels:
         us = e.time_range.elapsed_us()
         if "raster_tile_kernel" in e.name:
@@ -121,10 +120,7 @@ def child(cell: str) -> dict:
         if frame is not None:
             frame += us
         if "bin_tiles_" in e.name:
-            chain.append(us)
-            if len(chain) == 3:
-                k5.append(sum(chain) / 1e3)
-                chain = []
+            k5.append(us / 1e3)
 
     def summary(xs):
         return [min(xs), statistics.median(xs), max(xs)] if xs else None

@@ -8,7 +8,8 @@ Run from the repository root:
 Each variant is a copy of ``csrc/bin_tiles.cu`` with a few text edits
 (``VARIANTS``); the source as it stands is ``source``. Each is built with
 the kernels' nvcc flags (``cuda_build.build_library``, all at once) and
-stands in for K5's library behind the same wrapper. On the binning calls
+stands in for K5's library behind the same wrapper (its grid from its own
+``kBlocksAnSM`` and ``kRecordsABlock``). On the binning calls
 of the 1080p demo's and the 4K stress scene's eager frame 1 (captured at
 ``binning.bin_tiles``) every variant is held bit for bit against K5's
 plain version, then timed in turns (the source, the variants, the
@@ -17,10 +18,11 @@ each frame queued behind a spin on the card so that the host's launch
 rate does not count (warm: the same input read again), frame by frame
 with a 256 MiB write flushing the 50 MB L2 before each, and inside the
 cell's CUDA graph replay (the profiler's K5 kernels over 20 frames of an
-app built with the variant). Each variant takes out one of the source's
-forks (or tries a form that was not kept), so its times say what the
-fork buys in each cell; an edit that no longer applies to the source
-raises, and is then updated or dropped.
+app built with the variant), and the seven phases of one launch on the
+cell's largest call (``K5.phase_times``). Each variant takes out one of
+the source's forks (or tries a form that was not kept), so its times say
+what the fork buys in each cell; an edit that no longer applies to the
+source raises, and is then updated or dropped.
 """
 
 from __future__ import annotations
@@ -39,37 +41,59 @@ from ..ops.cuda_build import BUILD_DIR, build_library
 
 LAB_DIR = os.path.join(BUILD_DIR, "k5_lab")
 SPIN_CYCLES = 1_000_000   # torch.cuda._sleep ahead of each timed frame
-_FEW = "constexpr int kFewRecords = 1 << 17;"
-_WARP_SORT = "  else order_warp<kWarpRows / 32>(p, n);"
-_LADDER = """  else if (n <= 32) order_warp<1>(p, n);
-  else if (n <= 64) order_warp<2>(p, n);
-  else if (n <= 128) order_warp<4>(p, n);
-  else if (n <= 256) order_warp<8>(p, n);
-  else order_warp<16>(p, n);"""
-_SORT = "if constexpr (kLanes != 32) order_network<kLanes>(p, n);"
+_BLOCKS = "constexpr int kBlocksAnSM = 4;"
+_RECORDS = "constexpr int kRecordsABlock = 512;"
+_BEFORE = "  before = block_sum(before);\n"
+_PAIR_SPLIT = """  const long long lo = (long long)b * K / G;
+  const long long hi = (long long)(b + 1) * K / G;
+"""
+_EXPAND = "constexpr int kExpand = 4;"
 
 
-def _edit(old: str, new: str):
+def _edit(*pairs: str):
+    """Text edits (old, new, old, new, ...), each of which must apply."""
     def apply(src: str) -> str:
-        if old not in src:
-            raise ValueError(f"a variant's edit no longer applies: {old!r}")
-        return src.replace(old, new)
+        for old, new in zip(pairs[::2], pairs[1::2]):
+            if old not in src:
+                raise ValueError(f"a variant's edit no longer applies: "
+                                 f"{old!r}")
+            src = src.replace(old, new)
+        return src
     return apply
 
 
 VARIANTS = {
     "source": lambda src: src,
-    # the count groups every warp's pairs by tile (__match_any_sync), as
-    # the place does, instead of only where neighbouring lanes share one
-    "count_match_all": _edit("const Claim w = claim_group<true>(p[q]);",
-                             "const Claim w = claim_group<false>(p[q]);"),
-    # one record a thread at every size, or two at every size
-    "items1": _edit(_FEW, _FEW.replace("1 << 17", "INT_MAX")),
-    "items2": _edit(_FEW, _FEW.replace("1 << 17", "0")),
-    # a warp's segment of many runs sorted by the smallest register
-    # network that holds it, or by the scope's network in shared memory
-    "warp_sort_ladder": _edit(_WARP_SORT, _LADDER),
-    "warp_network": _edit(_SORT, _SORT.replace("kLanes != 32", "true")),
+    # two blocks an SM at most: fewer arrivals at each grid barrier, fewer
+    # warps to hide the searches' and atomics' latency
+    "blocks_an_sm_2": _edit(_BLOCKS, _BLOCKS.replace("4", "2")),
+    # a block for each 128 records (the demo's pass on 161 blocks, not one
+    # an SM) for each 512
+    "records_a_block_128": _edit(_RECORDS, _RECORDS.replace("512", "128")),
+    # each block takes the pairs of its own records (the record split)
+    # instead of an equal range of the pairs
+    "record_split": _edit(
+        _BEFORE, _BEFORE + "  const long long own = block_sum(\n"
+        "      t == 0 ? (long long)__ldcg(g.rec_sum + b) : 0ll);\n",
+        _PAIR_SPLIT, "  const long long lo = before < K ? before : K;\n"
+        "  const long long hi = before + own < K ? before + own : K;\n"),
+    # chunks of 512 pairs (two a thread) for 1,024
+    "expand_2": _edit(_EXPAND, _EXPAND.replace("4", "2")),
+    # a warp sorts the rows of every tile of more than 32 rows and more
+    # than one run, not merging up to 64 runs
+    "warp_sort_all": _edit("  if (k > kMaxRuns) {", "  if (true) {"),
+    # one register network of kWarpRows rows for every many-run tile, in
+    # place of the smallest of three that holds the tile
+    "one_sort_size": _edit(
+        "    if (n <= 128) sort_warp_rows<4>(seg, s.rows, n);\n"
+        "    else if (n <= 256) sort_warp_rows<8>(seg, s.rows, n);\n"
+        "    else sort_warp_rows", "    sort_warp_rows"),
+    # phase 2 reads every box again instead of the rects phase 1 kept
+    "no_record_cache": _edit("const bool cached = r1 - r0 <= kCache;",
+                             "const bool cached = false;"),
+    # an ordinary launch of the same grid (its blocks resident in practice,
+    # not by the runtime's check)
+    "plain_launch": _edit("cudaLaunchCooperativeKernel(", "cudaLaunchKernel("),
 }
 
 
@@ -84,8 +108,7 @@ def _build(name: str, src: str):
 def _load(lib, log: str):
     ref = binning.K5.build()
     for fn in ("bin_tiles_scratch_words", "bin_tiles_launch",
-               "bin_tiles_setup", "bin_tiles_resident_blocks",
-               "bin_tiles_scan_blocks"):
+               "bin_tiles_setup", "bin_tiles_occupancy", "bin_tiles_grid"):
         getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
         getattr(lib, fn).restype = getattr(ref, fn).restype
     err = lib.bin_tiles_setup()
@@ -184,12 +207,14 @@ def main(argv=None) -> int:
     calls = {cell: _frame1_calls(cell) for cell in cells}
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     launches = binning.K5.launches
-    times = {(name, cell): {"warm": [], "flushed": [], "replay": []}
+    times = {(name, cell): {"warm": [], "flushed": [], "replay": [],
+                            "phases": []}
              for name in libs for cell in cells}
     order = list(libs) + list(reversed(list(libs)))
     try:
         for name in order:
             binning.K5.lib = libs[name]
+            binning.K5._occupancy.clear()
             for cell in cells:
                 for args in calls[cell]:
                     got = binning.K5(*args)
@@ -205,8 +230,11 @@ def main(argv=None) -> int:
                 t["warm"].append(_warm(frame, 100))
                 t["flushed"].append(_flushed(frame, 50, flush))
                 t["replay"].append(_in_replay(cell))
+                big = max(calls[cell], key=lambda a: a[0].shape[0])
+                t["phases"].append(binning.K5.phase_times(*big))
     finally:
         binning.K5.lib = source_lib
+        binning.K5._occupancy.clear()
         binning.K5.launches = launches
 
     def runs(xs):
@@ -218,6 +246,9 @@ def main(argv=None) -> int:
               f"{min(t['flushed']):.4f} ({runs(t['flushed'])}), in the "
               f"replay {runs(t['replay'])}; bit-equal to the plain "
               f"version", flush=True)
+        print("      phases (ms, one launch a turn): " + "; ".join(
+            f"{k} {', '.join(f'{p[k]:.4f}' for p in t['phases'])}"
+            for k in binning.PHASES), flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()

@@ -230,8 +230,8 @@ GROUPS = (("torch.cat copies", "CatArrayBatchedCopy"),
           ("K4", "straddle_"), ("K5", "bin_tiles_"),
           ("host-to-device copies", "Memcpy HtoD"))
 # the sorts of binning's plain version and of the straddler selection
-# (cub's radix sorts, torch's in-place sorts of short rows); K5's kernels
-# (bin_tiles_count, _place, _order) match neither this nor
+# (cub's radix sorts, torch's in-place sorts of short rows); K5's one kernel
+# (bin_tiles_kernel, a launch a raster pass) matches neither this nor
 # elementwise_kernel
 SORTS = ("sorts", "Sort")
 
@@ -403,7 +403,7 @@ def k5_graph_replays(device, replays: int = 30, records: int = 20_000,
     (``trisets.bin_boxes`` by ``BIN_REPLAYS``); after each replay the four
     results of both passes against ``bin_tiles_reference`` on that
     replay's inputs. Returns the values that differ, and raises if the
-    graph does not hold exactly two chains or leaves its scratch dirty.
+    graph does not hold exactly two launches or leaves its scratch dirty.
     K5's launch count is left as it was."""
     import torch
 
@@ -434,7 +434,7 @@ def k5_graph_replays(device, replays: int = 30, records: int = 20_000,
             outs = frame_passes()
         held = binning.K5.launches - before
         if held != len(passes):
-            raise AssertionError(f"the graph holds {held} K5 chains for "
+            raise AssertionError(f"the graph holds {held} K5 launches for "
                                  f"{len(passes)} passes")
         bad = 0
         for r in range(replays):

@@ -233,7 +233,7 @@ def terrain_inputs(size, instances, seed):
 
 
 def bin_boxes(n, seed, H, W, big=0.05, off=0.0, nan=0.0, invalid=0.0,
-              full=0, crowd=0.0, inverted=0.0):
+              full=0, crowd=0.0, inverted=0.0, giant=0):
     """Inputs of K5 (binning) for an H x W frame: (valid bool[n], bbox
     f32[4, n] as min u, max u, min v, max v). Most boxes are a few pixels
     wide, a fraction ``big`` up to one and a half frames; a fifth sit on
@@ -245,7 +245,9 @@ def bin_boxes(n, seed, H, W, big=0.05, off=0.0, nan=0.0, invalid=0.0,
     at the frame's centre (thousands of records in one tile). A fraction
     ``inverted`` has its min and max swapped on one axis or both, and
     with it the last box is one inverted on both axes across many tiles
-    (rects empty on an axis: no pair)."""
+    (rects empty on an axis: no pair). ``giant`` boxes from the middle of
+    the set on cover 92 % of the frame's width and 90 % of its height (a
+    triangle over most of the frame, as the demo's near terrain)."""
     rng = np.random.default_rng(seed)
     cx = rng.uniform(-0.05 * W, 1.05 * W, n)
     cy = rng.uniform(-0.05 * H, 1.05 * H, n)
@@ -278,6 +280,10 @@ def bin_boxes(n, seed, H, W, big=0.05, off=0.0, nan=0.0, invalid=0.0,
             g = flip[(axes == a) | (axes == 2)]
             box[lo, g], box[hi, g] = box[hi, g].copy(), box[lo, g].copy()
         box[:, -1] = [0.8 * W, 0.2 * W, 0.7 * H, 0.3 * H]
+    if giant:
+        at = np.linspace(n // 2, n - 1, giant).astype(np.int64)
+        box[:, at] = np.asarray([[0.04 * W], [0.96 * W], [0.05 * H],
+                                 [0.95 * H]])
     if full:
         every = rng.choice(n, size=min(full, n), replace=False)
         box[:, every] = np.asarray([[-3.5], [W + 2.5], [-7.0], [H + 1.0]])
@@ -303,6 +309,8 @@ BIN_CASES = {
                                                      "crowd": 0.65}),
     "inverted boxes": (3000, 11, (200, 300), None, {"big": 0.3,
                                                     "inverted": 0.3}),
+    "one big triangle among 20,000": (20000, 13, (1080, 1920), None,
+                                      {"big": 0.0, "giant": 1}),
 }
 
 

@@ -15,6 +15,7 @@ the binning reaches it through ``rasterize_packed``'s parity tests
 tests marked ``cuda`` hold K5 to its plain version with ``torch.equal``
 on all four results, eagerly, inside the renderer's frames and as a CUDA
 graph replayed with its inputs rewritten (``profiling.k5_graph_replays``),
+and on grids set by hand (the card's whole residency, one block an SM),
 and skip without a card."""
 
 import numpy as np
@@ -236,8 +237,8 @@ def cuda_device():
 
 
 def card_against_plain(valid, bbox, height, width, y0, cap, dev):
-    """K5 and its plain version on the card: one chain launched, the four
-    results equal."""
+    """K5 and its plain version on the card: one launch, the four results
+    equal."""
     v = torch.from_numpy(valid).to(dev)
     b = torch.from_numpy(bbox).to(dev)
     before = binning.K5.launches
@@ -248,6 +249,24 @@ def card_against_plain(valid, bbox, height, width, y0, cap, dev):
     for a, w in zip(got, want):
         assert a.device == w.device and torch.equal(a, w)
     return want
+
+
+def card_on_grid(valid, bbox, height, width, y0, cap, dev, blocks):
+    """K5 on a grid of ``blocks`` blocks against its plain version: the
+    four results equal; returns the plain version's."""
+    v = torch.from_numpy(valid).to(dev)
+    b = torch.from_numpy(bbox).to(dev)
+    got = binning.K5(v, tuple(b), height, width, y0, cap, blocks=blocks)
+    want = binning.bin_tiles_reference(v, b, height, width, y0, cap)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    return want
+
+
+def scratch_dirty():
+    """Non-zero words left in K5's eager scratches."""
+    return sum(int(t.count_nonzero())
+               for t in binning.K5.scratch._eager.values())
 
 
 @pytest.mark.cuda
@@ -279,23 +298,84 @@ def test_k5_edge_cases_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-def test_k5_band_at_the_residency_limit(cuda_device, monkeypatch):
-    """A band of as many 1,024-tile scan chunks as the card holds count
-    blocks at once (at most MAX_TILES tiles) bins as the plain version
-    does; were the card to hold one block fewer, K5 refuses the band
-    instead of launching a count whose last blocks could wait forever."""
-    chunks = min(binning.K5.resident_blocks(cuda_device),
-                 binning.MAX_TILES // 1024)
-    height, width = 16 * chunks, 16 * 1024
-    valid, bbox = bin_boxes(3000, 12, height, width, big=0.001, full=1)
-    card_against_plain(valid, bbox, height, width, 0,
-                       raster.pair_capacity(valid.size), cuda_device)
-    monkeypatch.setitem(binning.K5._resident, cuda_device.index or 0,
-                        chunks - 1)
-    with pytest.raises(ValueError):
-        binning.bin_tiles(torch.from_numpy(valid).to(cuda_device),
-                          torch.from_numpy(bbox).to(cuda_device), height,
-                          width, 0, raster.pair_capacity(valid.size))
+def test_k5_band_at_the_residency_limit(cuda_device):
+    """The grid at the card's whole residency (every block the SMs hold at
+    once, past the kernel's own cap where the card holds more) bins the 8K
+    frame (129,600 tiles, 127 chunks of 1,024) and a band of MAX_TILES
+    tiles as the plain version does, and leaves the scratch zeroed."""
+    resident = binning.K5.resident_blocks(cuda_device)
+    assert resident >= binning.K5.blocks(cuda_device, 20000) > 0
+    for height, width in ((4320, 7680), (16 * 1024, 16 * 1024)):
+        valid, bbox = bin_boxes(20000, 12, height, width, big=0.01, full=1)
+        card_on_grid(valid, bbox, height, width, 0,
+                     raster.pair_capacity(valid.size), cuda_device, resident)
+    assert scratch_dirty() == 0
+
+
+@pytest.mark.cuda
+def test_k5_records_past_the_block_cache(cuda_device):
+    """One block an SM, so that each block holds more records than it
+    keeps in shared memory from phase 1 to 2 (2,048) and its compaction
+    reads the boxes again a round at a time: spans past 2^31 (524,289
+    records, about 3,970 a block on 132 SMs) and a 4K frame of a million
+    boxes, each at its capacity and starved to a third of its pairs."""
+    sms = binning.K5.occupancy(cuda_device)[1]
+    big = big_spans() + (1024, 1024)
+    frame = bin_boxes(1_000_000, 14, 2160, 3840, big=0.0) + (2160, 3840)
+    for valid, bbox, height, width in (big, frame):
+        assert valid.size / sms > 2048
+        cap = raster.pair_capacity(valid.size)
+        want = card_on_grid(valid, bbox, height, width, 0, cap, cuda_device,
+                            sms)
+        card_on_grid(valid, bbox, height, width, 0,
+                     max(int(want[2].sum()) // 3, 1), cuda_device, sms)
+    assert scratch_dirty() == 0
+
+
+@pytest.mark.cuda
+def test_k5_refuses_a_grid_past_the_resident_blocks(cuda_device):
+    """One block more than the card holds at once: the cooperative launch
+    is refused (no kernel runs, nothing is counted, the scratch stays
+    zeroed), the wrapper raises, and the next launch runs as before."""
+    valid, bbox, height, width, y0 = bin_case("random")
+    v = torch.from_numpy(valid).to(cuda_device)
+    b = tuple(torch.from_numpy(bbox).to(cuda_device))
+    cap = raster.pair_capacity(valid.size)
+    before = binning.K5.launches
+    with pytest.raises(RuntimeError, match="launch"):
+        binning.K5(v, b, height, width, y0, cap,
+                   blocks=binning.K5.resident_blocks(cuda_device) + 1)
+    assert binning.K5.launches == before
+    torch.cuda.synchronize()
+    assert scratch_dirty() == 0
+    card_against_plain(valid, bbox, height, width, y0, cap, cuda_device)
+
+
+@pytest.mark.cuda
+def test_k5_big_triangle_pass(cuda_device):
+    """The demo's case: one triangle over most of a 1920 x 1080 frame
+    among 20,000 small ones, its thousands of pairs shared out over the
+    blocks by pair ranges. K5 equals its plain version at the pass's
+    capacity, starved to a third of its pairs (the cut inside the big
+    triangle's pairs), and on four bands; and the launch's phase times
+    are stamped in order."""
+    valid, bbox, height, width, y0 = bin_case(
+        "one big triangle among 20,000")
+    cap = raster.pair_capacity(valid.size)
+    want = card_against_plain(valid, bbox, height, width, y0, cap,
+                              cuda_device)
+    pairs = int(want[2].sum())
+    card_against_plain(valid, bbox, height, width, y0, pairs // 3,
+                       cuda_device)
+    for k in range(4):
+        card_against_plain(valid, bbox, height // 4, width, k * height // 4,
+                           cap, cuda_device)
+    phases = binning.K5.phase_times(
+        torch.from_numpy(valid).to(cuda_device),
+        tuple(torch.from_numpy(bbox).to(cuda_device)), height, width, y0,
+        cap)
+    assert list(phases) == list(binning.PHASES)
+    assert all(ms >= 0 for ms in phases.values())
 
 
 @pytest.mark.cuda
@@ -308,8 +388,9 @@ def test_k5_graph_replays_match_plain_version(cuda_device):
 
 @pytest.mark.cuda
 def test_k5_one_chain_a_pass(cuda_device):
-    """The demo's frame is one raster pass: one K5 chain a frame, eagerly
-    and as graph replays, and no pass bins with the plain version."""
+    """The demo's frame is one raster pass: one K5 launch a frame, eagerly
+    and as graph replays, one bin_tiles_ kernel in a replay's trace, and
+    no pass bins with the plain version."""
     from myrenderer_tpu_torch.app.demo import DemoApp
     app = DemoApp(256, 192, device="cuda")
     app.tick()                            # the capture
@@ -321,9 +402,13 @@ def test_k5_one_chain_a_pass(cuda_device):
         for _ in range(5):
             app.tick()
         assert binning.K5.launches == before + 5
+        by_name = profiling.profile_frames(app, 3, "k5_one_launch")[3]
+        kernels = {k: n for k, (_t, n) in by_name.items()
+                   if "bin_tiles_" in k}
+        assert sum(kernels.values()) == 3, kernels
         app.draw._eager_frames = True
         app.tick()
-        assert binning.K5.launches == before + 6
+        assert binning.K5.launches == before + 9
     finally:
         binning.bin_tiles_reference = plain
     assert not calls
