@@ -93,16 +93,23 @@ at the first failed phase:
 13. the benchmark's smoke rows: ``bench_torch.main(["--smoke"])`` in
    this process (the demo at 256x256 through its checks, timed loops and
    traced run), its row non-null and correct;
-14. K2 (clip + setup + pack, ``ops/setup_pack.py``) against its plain
-   PyTorch version on the card, bit for bit in every lane of the
-   records, the valid flags and the boxes (NaN against NaN): random
-   batches (``trisets.setup_batch``) over every cull mode, layout, z bias
-   and ids, from row 37 of a larger table, half of them read through
-   strided views; every K2 call of the 1080p demo's and the 4K stress
-   scene's frame 1 (each batch and its appendee block); K2 alone over a
-   frame's calls at those shapes, back to back and with the L2 flushed,
-   beside its plain version and its bound; its launches on every path
-   (counted from 0 around each path as K1's are, and required);
+14. K2 (clip + setup + pack, ``ops/setup_pack.py``: one launch a raster
+   pass over its segments, each batch and each appendee block) against
+   its plain PyTorch version on the card, bit for bit in every lane of
+   the records, the valid flags and the boxes (NaN against NaN):
+   random batches (``trisets.setup_batch``) over every cull mode, layout,
+   z bias and ids, half of them read through strided views, as passes of
+   6 segments and one pass of all 36 (two launches); K2 as a CUDA graph of
+   two passes replayed 30 times with every input rewritten in place
+   (``profiling.k2_graph_replays``); every K2 pass of the 1080p demo's,
+   the 4K stress scene's, the sequential path's and the demo on 4 bands'
+   eager frame 1 (captured at ``setup_pack_pass``); K2 alone over a
+   frame's launches at the two cells' passes, back to back and with the
+   L2 flushed, beside its plain version
+   and its bound; its launches on every path (counted from 0 around each
+   path as K1's are, and required; exactly one a raster pass without a
+   mesh and two a frame and distinct card on one: the shards' stage, the
+   bands' pass);
 15. K3 (the terrain's whole-stream vertex shader,
    ``ops/terrain_vertex.py``) and K4 (the straddler selection,
    ``ops/straddlers.py``) against their plain PyTorch versions on the
@@ -186,6 +193,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -206,6 +214,7 @@ BAND_STRESS_FRAMES = 5    # stress frames a turn, banded and on one device
 BAND_ROUNDS = 3           # turns of each
 SPIN_HZ = 2.0e9           # cycles a second of torch.cuda._sleep (at most)
 ALONE_SPIN_MS = 0.5       # card spin ahead of each K3 / K4 frame timed alone
+K2_REPLAYS = 30           # replays of phase 14's K2 graph
 K4_REPLAYS = 60           # replays of phase 15's K4 graph
 # fp32 operations of one triangle in K2: pixel coordinates 24, edges 27
 # (an FMA counts two), det 5, the cull sign 9, the z bias 6, 18 plane
@@ -259,8 +268,8 @@ def kernel_path(path: str):
 
 
 def batches(app) -> int:
-    """Batches of ``app``'s frame plan (K2 launches twice for each on one
-    device: its triangles, its appendee block; K4 once)."""
+    """Batches of ``app``'s frame plan (K4 launches once for each on one
+    device)."""
     plan = next(iter(app.draw._plans.values()))
     return sum(len(b) for b in plan.surfaces)
 
@@ -472,9 +481,11 @@ def fenced_layers(totals: dict):
     """Add each frame layer's wall time, fenced by a device sync before
     and after it, into ``totals`` (ms by layer)."""
     from myrenderer_tpu_torch.ops import raster
+    from myrenderer_tpu_torch.ops import setup_pack as sp
     from myrenderer_tpu_torch.renderer import draw
     targets = [(draw, "_batch_vertex_products", "vertex stage (incl. cull)"),
-               (draw, "_setup_batch", "clip + setup + pack"),
+               (draw, "_batch_segments", "clip + setup + pack"),
+               (sp, "setup_pack_pass", "clip + setup + pack"),
                (raster, "bin_bands", "binning"),
                (raster, "rasterize_tiles", "K1"),
                (raster, "shade_from_planes_ranges", "shade"),
@@ -701,15 +712,21 @@ def pack_split(make_app, label: str):
     every batch is packed in one piece a shard (shard k holds triangles
     [k * ceil(T / rows), ...)), plus its appendee block of 2 * 128 clip
     slots once a distinct device, and no piece holds a whole batch of
-    more than one shard's triangles. Prints each batch's pieces."""
+    more than one shard's triangles; two K2 passes a distinct device.
+    Prints each batch's pieces."""
     from myrenderer_tpu_torch.renderer.draw import CLIP_CAPACITY
     app = make_app()
     app.draw._eager_frames = True
-    calls = []
-    with capture_setup_calls(calls):
+    passes = []
+    with capture_setup_passes(passes):
         app.tick()
-    sizes = [c["tri_clip"].shape[0] for c in calls]
+    sizes = [s.tri_clip.shape[0] for segments in passes for s in segments]
     plan = next(iter(app.draw._plans.values()))
+    # a distinct device's shards in one K2 pass, its bands' appendee
+    # blocks in another
+    if len(passes) != 2 * len(plan.devices):
+        raise AssertionError(f"{label}: {len(passes)} K2 passes on "
+                             f"{len(plan.devices)} distinct devices")
     batches = [b for batches in plan.surfaces for b in batches]
     want = collections.Counter()
     for b in batches:
@@ -854,6 +871,7 @@ def graph_against_eager(make_app, frames: int, label: str, path: str):
     launches = dict.fromkeys(apps, 0)
     for app in apps.values():
         app.renderer.debug_winner = True
+    k2_before = K2_BY_PATH[path]
     for frame in range(1, frames + 1):
         for mode, app in apps.items():
             rk.K1.launches = 0
@@ -862,6 +880,10 @@ def graph_against_eager(make_app, frames: int, label: str, path: str):
             launches[mode] += rk.K1.launches
         frames_equal(apps["graph"], apps["eager"], label, frame)
     bands = n_bands(apps["graph"])
+    k2 = K2_BY_PATH[path] - k2_before
+    if k2 != k2_a_frame(apps["graph"]) * frames:
+        raise AssertionError(f"{label}: K2 launched {k2} times in {frames} "
+                             f"frames")
     for mode, app in apps.items():
         if launches[mode] != bands * frames:
             raise AssertionError(f"{label} ({mode}): K1 launched "
@@ -879,6 +901,14 @@ def graph_against_eager(make_app, frames: int, label: str, path: str):
           f"{bands} K1 launch{'es' if bands > 1 else ''} a frame each; no "
           f"overflow flag at big scale 1")
     return apps["graph"], apps["eager"], launches["graph"]
+
+
+def k2_a_frame(app) -> int:
+    """K2's launches in a frame of ``app`` (one merged raster pass): one,
+    or on a mesh two for each distinct card (the shards' stage, the
+    bands' pass)."""
+    plan = next(iter(app.draw._plans.values()))
+    return 1 if plan.mesh is None else 2 * len(plan.devices)
 
 
 def n_bands(app) -> int:
@@ -1398,136 +1428,129 @@ def bench_smoke():
 
 
 @contextlib.contextmanager
-def capture_setup_calls(store: list):
-    """Record the arguments of every K2 dispatch (``setup_pack_into``) a
-    frame makes, the table replaced by its row count ``rows``."""
-    import inspect
+def capture_setup_passes(store: list):
+    """Record the segments of every K2 pass (``setup_pack_pass``) a frame
+    makes, a list a pass."""
     from myrenderer_tpu_torch.ops import setup_pack as sp
-    orig = sp.setup_pack_into
-    sig = inspect.signature(orig)
+    orig = sp.setup_pack_pass
 
-    def wrapped(*args, **kw):
-        call = sig.bind(*args, **kw)
-        call.apply_defaults()
-        call = dict(call.arguments)
-        call["rows"] = call.pop("table").packed.shape[0]
-        store.append(call)
-        return orig(*args, **kw)
+    def wrapped(segments):
+        segments = [sp.Segment(*s) for s in segments]
+        store.append(segments)
+        return orig(segments)
 
-    sp.setup_pack_into = wrapped
+    sp.setup_pack_pass = wrapped
     try:
         yield
     finally:
-        sp.setup_pack_into = orig
+        sp.setup_pack_pass = orig
 
 
-def zero_table(rows: int, dev):
-    from myrenderer_tpu_torch.ops import setup_pack as sp
-    return sp.RecordTable(
-        torch.zeros((rows, 32), dtype=torch.float32, device=dev),
-        torch.zeros(rows, dtype=torch.bool, device=dev),
-        torch.zeros((4, rows), dtype=torch.float32, device=dev))
-
-
-def k2_args(call) -> dict:
-    """``call`` without its row count: K2's and its plain version's
-    arguments after the table."""
-    return {k: v for k, v in call.items() if k != "rows"}
-
-
-def k2_against_plain(call, dev):
-    """K2 and its plain version on one call's inputs, each into its own
-    zeroed table of the call's rows. Returns (values that differ, the
-    largest finite difference); NaN against NaN counts as equal."""
-    from myrenderer_tpu_torch.ops import setup_pack as sp
-    got, want = zero_table(call["rows"], dev), zero_table(call["rows"], dev)
-    launches = sp.K2.launches
-    sp.K2(got, **k2_args(call))
-    sp.K2.launches = launches
-    sp.setup_pack_reference(want, **k2_args(call))
-    torch.cuda.synchronize()
-    bad, err = 0, 0.0
-    for a, b in zip(got, want):
-        if a.is_floating_point():
-            differ = ((a.view(torch.int32) != b.view(torch.int32))
-                      & ~(torch.isnan(a) & torch.isnan(b)))
-            both = torch.isfinite(a) & torch.isfinite(b)
-            if bool(both.any()):
-                err = max(err, float((a[both] - b[both]).abs().max()))
-        else:
-            differ = a != b
-        bad += int(differ.sum())
-    return bad, err
-
-
-def k2_bound(calls):
-    """K2's bound over ``calls``: (ms, "bytes" or "operations", bytes).
+def k2_bound(segments):
+    """K2's bound over ``segments``: (ms, "bytes" or "operations", bytes).
     Each triangle's clip positions and varyings (96 bytes), valid flag
     and id (4 bytes, when given) are read once, its record (128), box
     (16) and flag (1) written once; K2_OPS_PER_TRI fp32 operations a
     triangle."""
-    tris = sum(c["tri_clip"].shape[0] for c in calls)
-    nbytes = sum(c["tri_clip"].shape[0]
-                 * (96 + 1 + (0 if c["ids"] is None else 4) + 128 + 16 + 1)
-                 for c in calls)
+    tris = sum(s.tri_clip.shape[0] for s in segments)
+    nbytes = sum(s.tri_clip.shape[0]
+                 * (96 + 1 + (0 if s.ids is None else 4) + 128 + 16 + 1)
+                 for s in segments)
     ms_bytes = nbytes / 3.35e12 * 1e3
     ms_ops = K2_OPS_PER_TRI * tris / 67e12 * 1e3
     return ((ms_bytes, "bytes", nbytes) if ms_bytes >= ms_ops
             else (ms_ops, "operations", nbytes))
 
 
-def time_k2(calls, dev, flush, label, card):
-    """K2 alone over one frame's calls (its launches a frame) beside its
-    plain version (plain, K2, K2, plain), then frame by frame with the L2
-    flushed; the timing launches are taken back out of K2's count."""
+def check_k2_passes(passes, label: str) -> float:
+    """Each pass of ``passes`` through K2 against its plain version, bit
+    for bit; raises at a difference. Returns the largest finite
+    difference."""
+    from myrenderer_tpu_torch.utils.profiling import k2_pass_against_plain
+    err = 0.0
+    for j, segments in enumerate(passes):
+        bad, e, launches = k2_pass_against_plain(segments)
+        if bad:
+            raise AssertionError(f"K2 differs from its plain version in "
+                                 f"{bad} values: {label}, pass {j}")
+        err = max(err, e)
+        sizes = [s.tri_clip.shape[0] for s in segments]
+        print(f"  {label}, pass {j}: {len(segments)} segments of {sizes} "
+              f"triangles in {launches} launch(es): every lane, flag and box "
+              f"bit-equal to the plain version")
+    return err
+
+
+def time_k2(passes, flush, label, card):
+    """K2 alone over one frame's passes (its launches a frame) beside its
+    plain version, in turns (plain, K2, K2, plain), then frame by frame
+    with the L2 flushed, and a device copy of as many bytes; the timing
+    launches are taken back out of K2's count."""
     from myrenderer_tpu_torch.ops import setup_pack as sp
-    calls = [c for c in calls if c["tri_clip"].shape[0]]
-    tables = [zero_table(c["rows"], dev) for c in calls]
+    groups = [g for segments in passes for g in sp.launch_groups(segments)]
+    segments = [s for pss in passes for s in pss]
 
     def k2_frame():
-        for c, t in zip(calls, tables):
-            sp.K2(t, **k2_args(c))
+        for g in groups:
+            sp.K2(g)
 
     def plain_frame():
-        for c, t in zip(calls, tables):
-            sp.setup_pack_reference(t, **k2_args(c))
+        sp.setup_pack_pass_reference(segments)
 
     launches = sp.K2.launches
     p1 = time_call(plain_frame, 5)
-    k_a = time_call(k2_frame, 100, head_start=True)
-    k_b = time_call(k2_frame, 100, head_start=True)
-    cold = time_cold(k2_frame, 50, flush)
+    # the host queues a K2 launch (its segments' ctypes arguments) in about
+    # as long as the card runs the demo's: spin ALONE_SPIN_MS a frame ahead
+    # of it
+    k_a, k_b = (time_call(k2_frame, 100, head_start=True,
+                          spin_ms=ALONE_SPIN_MS) for _ in range(2))
+    cold = time_cold(k2_frame, 50, flush, spin_ms=ALONE_SPIN_MS)
     sp.K2.launches = launches
     p2 = time_call(plain_frame, 5)
     ms, plain_ms = min(k_a, k_b), min(p1, p2)
-    bound_ms, bound_by, nbytes = k2_bound(calls)
-    tris = sum(c["tri_clip"].shape[0] for c in calls)
-    print(f"  K2 at {label} ({len(calls)} launches a frame, {tris} "
-          f"triangles, {nbytes} bytes): {ms:.4f} ms a frame (runs "
-          f"{k_a:.4f}, {k_b:.4f}); bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{100.0 * bound_ms / ms:.1f} % of it; frame by frame with the L2 "
-          f"flushed (median of 50): {cold:.4f} ms "
-          f"({100.0 * bound_ms / cold:.1f} %); plain version {plain_ms:.3f} "
-          f"ms (runs {p1:.3f}, {p2:.3f}); card: {card}")
+    bound_ms, bound_by, nbytes = k2_bound(segments)
+    # what the card reaches on the same bytes: a device copy reading half
+    # of them and writing the other half
+    src = torch.empty(nbytes // 8, dtype=torch.float32,
+                      device=segments[0].tri_clip.device)
+    dst = torch.empty_like(src)
+    copy_ms = time_call(lambda: dst.copy_(src), 100, head_start=True)
+    del src, dst
+    tris = sum(s.tri_clip.shape[0] for s in segments)
+    print(f"  K2 at {label} ({len(groups)} launch(es) a frame, "
+          f"{len(segments)} segments, {tris} triangles, {nbytes} bytes): "
+          f"{ms:.4f} ms a frame (runs {k_a:.4f}, {k_b:.4f}); bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {100.0 * bound_ms / ms:.1f} % of "
+          f"it; frame by frame with the L2 flushed (median of 50): "
+          f"{cold:.4f} ms ({100.0 * bound_ms / cold:.1f} %); a device copy of the same bytes {copy_ms:.4f} ms (K2 at "
+          f"{100.0 * copy_ms / ms:.1f} % of its rate); plain version "
+          f"{plain_ms:.3f} ms (runs {p1:.3f}, {p2:.3f}); card: {card}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "cold_ms": cold, "bytes": nbytes,
-            "triangles": tris, "launches_a_frame": len(calls)}
+            "bound_by": bound_by, "cold_ms": cold, "copy_ms": copy_ms,
+            "bytes": nbytes,
+            "triangles": tris, "launches_a_frame": len(groups)}
 
 
 def k2_phase(dev, card: str, flush) -> dict:
     """Phase 14: K2 against its plain version, bit for bit, on random
-    batches and on the 1080p demo's and the 4K stress scene's frame-1
-    calls; K2 alone at those calls' shapes."""
+    multi-segment passes, in graph replays and on the passes of the 1080p
+    demo's, the 4K stress scene's, the sequential path's and the demo on
+    4 bands' frame 1; K2 alone at the two cells' passes."""
     import itertools
     from myrenderer_tpu_torch.app.demo import DemoApp
     from myrenderer_tpu_torch.app.stress import StressApp
+    from myrenderer_tpu_torch.ops import setup_pack as sp
+    from myrenderer_tpu_torch.parallel import make_mesh
+    from myrenderer_tpu_torch.utils.profiling import k2_graph_replays
     from myrenderer_tpu_torch.utils.trisets import setup_batch
-    err = 0.0
     combos = list(itertools.product(("back", "front", "none"),
                                     (False, True), (None, 0.0, 2.0),
                                     (False, True)))
-    for i, (cull, planar, bias, with_ids) in enumerate(combos):
-        T = 3000 + 17 * i
+    sizes = [3000 + 17 * i for i in range(len(combos))]
+    table = sp.new_table(37 + sum(sizes) + 11 * len(sizes), dev)
+    segments, row = [], 37
+    for i, ((cull, planar, bias, with_ids), T) in enumerate(zip(combos,
+                                                                sizes)):
         clip, vary, valid, ids = (torch.from_numpy(a).to(dev)
                                   for a in setup_batch(T, 100 + i))
         if i % 2:
@@ -1537,56 +1560,59 @@ def k2_phase(dev, card: str, flush) -> dict:
             wide = torch.zeros((T, 3, 8), device=dev)
             wide[..., 2:6] = clip
             clip = wide[..., 2:6]
-        call = {"rows": T + 48, "row0": 37, "tri_clip": clip,
-                "tri_vary": vary, "valid": valid, "width": 1920,
-                "height": 1080, "cull_mode": cull, "z_bias": bias,
-                "planar": planar, "base": 1000,
-                "ids": ids if with_ids else None}
-        bad, e = k2_against_plain(call, dev)
-        if bad:
-            raise AssertionError(f"K2 differs from its plain version in "
-                                 f"{bad} values: {cull}, planar {planar}, "
-                                 f"z bias {bias}, ids {with_ids}")
-        err = max(err, e)
+        segments.append(sp.Segment(table, row, clip, vary, valid, 1920, 1080,
+                                   cull, bias, planar, 1000 + row,
+                                   ids if with_ids else None))
+        row += T + 11
+    # passes of 6 segments, then all 36 (two launches)
+    err = check_k2_passes([segments[i:i + 6] for i in range(0, 36, 6)]
+                          + [segments], "random batches")
     print(f"  random batches: {len(combos)} (every cull mode, layout, z bias "
           f"and ids; 3,000-3,595 triangles with w at W_EPS, degenerate, "
           f"subnormal, huge and non-finite rows; half through strided "
-          f"views; from row 37): every lane, flag and box bit-equal to the "
-          f"plain version")
+          f"views; from row 37) in passes of 6 and of all {len(combos)}")
+    del segments, table
+    bad = k2_graph_replays(dev, replays=K2_REPLAYS)
+    if bad:
+        raise AssertionError(f"K2's graph replays differ from the plain "
+                             f"version in {bad} values")
+    print(f"  K2 as a CUDA graph of two passes (four segments into one "
+          f"table, two into two), replayed {K2_REPLAYS} times with every "
+          f"input rewritten in place: each replay bit-equal to the plain "
+          f"version")
+
+    def sequential():
+        frame = sequential_scene("cuda")
+        return types.SimpleNamespace(draw=frame.draw, tick=frame)
+
     shapes = {}
-    for name, make in (("demo_1080p", lambda: DemoApp(1920, 1080,
-                                                       device="cuda")),
-                       ("stress_4k", lambda: StressApp(device="cuda"))):
+    for name, make, n_passes in (
+            ("demo_1080p", lambda: DemoApp(1920, 1080, device="cuda"), 1),
+            ("stress_4k", lambda: StressApp(device="cuda"), 1),
+            ("sequential", sequential, 3),
+            ("demo_1080p_bands4", lambda: DemoApp(
+                1920, 1080, mesh=make_mesh(devices=[dev] * 4)), 2)):
         app = make()
         app.draw._eager_frames = True
-        calls = []
-        with capture_setup_calls(calls):
+        passes = []
+        with capture_setup_passes(passes):
             app.tick()
-        assert_no_flags(app, f"{name} frame 1 (K2's calls)")
-        # each batch's call, then its appendee block's
-        for j, c in enumerate(calls):
-            bad, e = k2_against_plain(c, dev)
-            T = c["tri_clip"].shape[0]
-            print(f"  {name} frame 1, K2 call at rows [{c['row0']}, "
-                  f"{c['row0'] + T}) of {c['rows']}: {T} triangles "
-                  f"({'its appendee block' if j % 2 else 'a batch'}"
-                  f", cull {c['cull_mode']}, z bias {c['z_bias']}, planar "
-                  f"{c['planar']}, ids {c['ids'] is not None}): "
-                  f"{bad} values differ")
-            if bad:
-                raise AssertionError(f"K2 differs from its plain version on "
-                                     f"{name}'s frame 1")
-            err = max(err, e)
-        shapes[name] = time_k2(calls, dev, flush,
-                               f"{name} frame-1 calls", card)
-        del app, calls
+        assert_no_flags(app, f"{name} frame 1 (K2's passes)")
+        if len(passes) != n_passes:
+            raise AssertionError(f"{name} frame 1 made {len(passes)} K2 "
+                                 f"passes, not {n_passes}")
+        err = max(err, check_k2_passes(passes, f"{name} frame 1"))
+        if name in ("demo_1080p", "stress_4k"):
+            shapes[name] = time_k2(passes, flush, f"{name} frame-1 passes",
+                                   card)
+        del app, passes
         gc.collect()
         torch.cuda.empty_cache()
     by_path = {k: v for k, v in K2_BY_PATH.items() if "(" not in k}
     print(f"  K2 launches by path (each counted from 0 around it): "
           f"{by_path}; card: {card}")
     return {"max_abs_err": err, "shapes": shapes,
-            "random_batches": len(combos)}
+            "random_batches": len(combos), "graph_replays": K2_REPLAYS}
 
 
 @contextlib.contextmanager
@@ -2130,7 +2156,7 @@ def main() -> int:
     if path_launches != TIMED_FRAMES:
         raise AssertionError(f"K1 launched {path_launches} times in "
                              f"{TIMED_FRAMES} frames")
-    if K2_BY_PATH["demo_1080p"] != 2 * batches(app) * TIMED_FRAMES:
+    if K2_BY_PATH["demo_1080p"] != TIMED_FRAMES:
         raise AssertionError(f"K2 launched {K2_BY_PATH['demo_1080p']} "
                              f"times in {TIMED_FRAMES} frames")
     if K4_BY_PATH["demo_1080p"] != batches(app) * TIMED_FRAMES:
@@ -2214,7 +2240,7 @@ def main() -> int:
     if stress_launches != STRESS_FRAMES:
         raise AssertionError(f"K1 launched {stress_launches} times in "
                              f"{STRESS_FRAMES} stress frames")
-    if K2_BY_PATH["stress_4k"] != 2 * batches(stress) * STRESS_FRAMES:
+    if K2_BY_PATH["stress_4k"] != STRESS_FRAMES:
         raise AssertionError(f"K2 launched {K2_BY_PATH['stress_4k']} times "
                              f"in {STRESS_FRAMES} stress frames")
     if K4_BY_PATH["stress_4k"] != batches(stress) * STRESS_FRAMES:
@@ -2307,6 +2333,9 @@ def main() -> int:
     if seq_launches != 3 or len(win_gpu) != 3:
         raise AssertionError(f"sequential frame: {seq_launches} K1 launches "
                              "for 3 batches")
+    if K2_BY_PATH["sequential"] != 3:
+        raise AssertionError(f"sequential frame: {K2_BY_PATH['sequential']} "
+                             "K2 launches for 3 passes")
     for d, frame in frames.items():
         assert_no_flags(frame, f"sequential frame ({d})")
     if not bits_equal(fb_gpu, fb_cpu) or not all(
@@ -2569,8 +2598,8 @@ def main() -> int:
         "launches": sum(k2_by_path.values()),
         "launches_by_path": k2_by_path,
         "max_abs_err": k2["max_abs_err"],
-        # the main path's shapes (the 1080p demo's frame 1: its 4
-        # launches); the stress frame's under "shapes"
+        # the main path's shapes (the 1080p demo's frame 1: its one
+        # launch); the stress frame's under "shapes"
         "ms": k2["shapes"]["demo_1080p"]["ms"],
         "plain_ms": k2["shapes"]["demo_1080p"]["plain_ms"],
         "bound_ms": k2["shapes"]["demo_1080p"]["bound_ms"],
@@ -2578,6 +2607,7 @@ def main() -> int:
         "library_ms": None,       # no PyTorch call computes K2's function
         "shapes": k2["shapes"],
         "random_batches": k2["random_batches"],
+        "graph_replays": k2["graph_replays"],
         "build_s": sp.K2.build_seconds,
     }, {
         "name": "K3 terrain_vertex",

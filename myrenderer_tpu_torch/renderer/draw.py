@@ -4,9 +4,9 @@ Port of ``myrenderer_tpu/renderer/draw.py``. Mirrors
 ``Renderer/Draw.zig``'s API (begin / clear / draw_surface / end). A
 frame is a function of its arguments (:func:`_frame`): scene transform
 composition, culling, the vertex stage, per-batch eye-plane clip +
-setup + pack (K2 on the card, into one record table a raster pass),
-raster passes (K1 on the card) and shading. Its shapes are
-static and it reads nothing back to the host; it returns the
+setup + pack (on the card K4 a batch, then one K2 launch a raster pass
+into its record table), raster passes (K1 on the card) and shading. Its
+shapes are static and it reads nothing back to the host; it returns the
 framebuffer, the winners and an overflow flag ``bool[2]`` (the pair
 capacity's lane, the clip capacity's lane). ``end`` runs it, on a card
 as one CUDA graph replay (``renderer/compiled.py``), and swaps the
@@ -348,26 +348,23 @@ def _batch_vertex_products(plan: _FramePlan, args: dict, world, device):
     return out
 
 
-def _setup_batch(plan: _FramePlan, tris: rc.Triangles, valid, cull_mode,
-                 table: sp.RecordTable, z_bias=None, base_index: int = 0,
-                 cap: int = CLIP_CAPACITY):
-    """Per-batch eye-plane clip + triangle setup + record pack + viewport
-    bbox into rows [base_index, base_index + T + 2*cap) of the pass's
-    ``table``: the batch's records, then its appendee block, each by one
-    :func:`sp.setup_pack_into`; the id lane holds global submission
-    ranks from ``base_index``, a record's row. Returns (packed f32[T +
-    2*cap, 32], valid, bbox, clip overflow bool[]), the first three views
-    of those rows."""
+def _batch_segments(plan: _FramePlan, tris: rc.Triangles, valid, cull_mode,
+                    table: sp.RecordTable, z_bias=None, base_index: int = 0,
+                    cap: int = CLIP_CAPACITY):
+    """Per-batch eye-plane clip (K4's straddler selection) and the K2
+    segments of rows [base_index, base_index + T + 2*cap) of the pass's
+    ``table``: the batch's records, then its appendee block; the id lane
+    holds global submission ranks from ``base_index``, a record's row.
+    Returns ([batch segment, appendee segment], clip overflow bool[])."""
     W, H = plan.width, plan.height
     T = tris.clip.shape[0]
     app_clip, app_vary, app_valid, _sel, overflow = rc.select_straddlers(
         tris.clip, tris.vary, valid, cap)
-    sp.setup_pack_into(table, base_index, tris.clip, tris.vary, valid, W, H,
-                       cull_mode, z_bias=z_bias, planar=tris.planar,
-                       base=base_index, ids=tris.ids)
-    sp.setup_pack_into(table, base_index + T, app_clip, app_vary, app_valid,
-                       W, H, cull_mode, z_bias=z_bias, base=base_index + T)
-    return (*table.rows(base_index, base_index + T + 2 * cap), overflow)
+    return [sp.Segment(table, base_index, tris.clip, tris.vary, valid, W, H,
+                       cull_mode, z_bias, tris.planar, base_index, tris.ids),
+            sp.Segment(table, base_index + T, app_clip, app_vary, app_valid,
+                       W, H, cull_mode, z_bias, False, base_index + T)
+            ], overflow
 
 
 def _batch_ids(plan: _FramePlan, cap: int) -> list:
@@ -435,10 +432,11 @@ def _merged_pass(plan: _FramePlan, args: dict, products, layout, fb, cap,
                  flags, setup):
     """Every surface in one raster pass. ``products`` holds (surface
     index, batch, setup input, FragmentCtx|None) per batch, and
-    ``setup(input, batch, z bias, first id, table)`` writes its T + 2*cap
-    rows of the pass's record table from the row of its first id and
-    gives its clip overflow. Returns (fb, winner), one tensor per band
-    each (winner None without products)."""
+    ``setup(input, batch, z bias, first id, table)`` gives the K2
+    segments of its T + 2*cap rows of the pass's record table, from the
+    row of its first id, and its clip overflow; every batch's segments
+    are then written by one :func:`sp.setup_pack_pass`. Returns (fb,
+    winner), one tensor per band each (winner None without products)."""
     if plan.clear_flags and plan.clear_flags[0]:
         fb = _band_clear(plan, layout, args["surfaces"][0]["clear"])
     if not products:
@@ -447,10 +445,12 @@ def _merged_pass(plan: _FramePlan, args: dict, products, layout, fb, cap,
     # one table for the pass: a batch's rows start at its first id
     table = sp.new_table(sum(b.tri_count + 2 * cap for _s, b, _d, _c
                              in products), layout[0][1])
-    ranges = []
+    ranges, segments = [], []
     for (s_i, b, data, fctx), (bias, base) in zip(products,
                                                    _batch_ids(plan, cap)):
-        flags["clip"].append(setup(data, b, bias, base, table))
+        segs, overflow = setup(data, b, bias, base, table)
+        segments += segs
+        flags["clip"].append(overflow)
         end = base + b.tri_count + 2 * cap
         # adjacent batches sharing a ctx-free fragment program coalesce
         # into one shading range
@@ -460,6 +460,7 @@ def _merged_pass(plan: _FramePlan, args: dict, products, layout, fb, cap,
             ranges[-1] = (ranges[-1][0], end, fn, None)
         else:
             ranges.append((base, end, fn, fctx))
+    sp.setup_pack_pass(segments)
     depth = _band_fill(plan, layout, 2.0 * (S - 1) + 1.0)
     _depth, fb, winner = _raster_pass(plan, layout, table.packed,
                                       table.valid, table.boxes, depth, fb,
@@ -487,7 +488,8 @@ def _sequential_passes(plan: _FramePlan, args: dict, products, layout, fb,
             if plan.backend == "tile":
                 rows = b.tri_count + 2 * cap
                 table = sp.new_table(rows, layout[0][1])
-                ovf = setup(data, b, None, 0, table)
+                segments, ovf = setup(data, b, None, 0, table)
+                sp.setup_pack_pass(segments)
                 depth2, fb, winner = _raster_pass(
                     plan, layout, table.packed, table.valid, table.boxes,
                     depth, fb, [(0, rows, fn, fctx)], flags)
@@ -550,8 +552,8 @@ def _frame(plan: _FramePlan, args: dict, device):
     cap = CLIP_CAPACITY * plan.big_scale
 
     def setup(data, b, bias, base, table):
-        return _setup_batch(plan, *data, b.pipeline.cull_mode, table,
-                            z_bias=bias, base_index=base, cap=cap)[-1]
+        return _batch_segments(plan, *data, b.pipeline.cull_mode, table,
+                               z_bias=bias, base_index=base, cap=cap)
 
     fb, winners, overflow = _passes(plan, args, products,
                                     _band_layout(plan, device), cap, setup,
@@ -606,18 +608,17 @@ def _shard_vertex_products(plan: _FramePlan, args: dict, world, device):
 
 
 def _shard_setup(plan: _FramePlan, b: _BatchPlan, tris: rc.Triangles, valid,
-                 lo: int, bias, base: int, cap: int) -> dict:
-    """A shard's part of :func:`_setup_batch`: its straddler candidates,
-    and the setup, records (ids from ``base``; a permuted producer's
-    ``ids`` are global) and boxes of its triangles, a table of its own
-    rows (:func:`sp.setup_pack_into`); the shard holding the batch's last
-    triangle also gives its row."""
+                 lo: int, bias, base: int, cap: int):
+    """A shard's part of :func:`_batch_segments`: its straddler
+    candidates, and the K2 segment of its triangles (ids from ``base``; a
+    permuted producer's ``ids`` are global) into a table of its own rows.
+    Returns (piece, segment): the piece holds the candidates and the
+    table's tensors, written once the segment's pass has run; the shard
+    holding the batch's last triangle also gives its row."""
     table = sp.new_table(tris.clip.shape[0], tris.clip.device)
-    sp.setup_pack_into(table, 0, tris.clip, tris.vary, valid, plan.width,
-                       plan.height, b.pipeline.cull_mode, z_bias=bias,
-                       planar=tris.planar,
-                       base=base + (lo if tris.ids is None else 0),
-                       ids=tris.ids)
+    segment = sp.Segment(table, 0, tris.clip, tris.vary, valid, plan.width,
+                         plan.height, b.pipeline.cull_mode, bias, tris.planar,
+                         base + (lo if tris.ids is None else 0), tris.ids)
     piece = {
         "cand": rc.straddler_candidates(tris.clip, tris.vary, valid, cap, lo,
                                         b.tri_count),
@@ -625,35 +626,38 @@ def _shard_setup(plan: _FramePlan, b: _BatchPlan, tris: rc.Triangles, valid,
     }
     if lo < b.tri_count == lo + tris.clip.shape[0]:
         piece["last"] = (tris.clip[-1:], tris.vary[-1:])
-    return piece
+    return piece, segment
 
 
 def _shard_stage(plan: _FramePlan, args: dict, device) -> dict:
     """The pre-kernel stage of a mesh frame on one of its devices: for
     every batch, the vertex stage, straddler candidates, setup, pack and
-    boxes of each shard on ``device``. Returns {(batch, shard): piece}.
-    Reads nothing back to the host and touches no other device."""
+    boxes of each shard on ``device``, every shard's rows written by one
+    :func:`sp.setup_pack_pass`. Returns {(batch, shard): piece}. Reads
+    nothing back to the host and touches no other device."""
     world = vs.compose_world_transforms(args["locals"],
                                         plan.level_index[device])
     cap = CLIP_CAPACITY * plan.big_scale
-    out = {}
+    out, segments = {}, []
     products = _shard_vertex_products(plan, args, world, device)
     for g, ((_s, b, pieces), (bias, base)) in enumerate(
             zip(products, _batch_ids(plan, cap))):
         for k, tris, valid in pieces:
-            out[g, k] = _shard_setup(plan, b, tris, valid, b.shards[k][0],
-                                     bias, base, cap)
+            out[g, k], segment = _shard_setup(plan, b, tris, valid,
+                                              b.shards[k][0], bias, base, cap)
+            segments.append(segment)
+    sp.setup_pack_pass(segments)
     return out
 
 
 def _mesh_setup(plan: _FramePlan, pieces: dict, g: int, b: _BatchPlan,
                 bias, base: int, cap: int, table: sp.RecordTable):
-    """:func:`_setup_batch` for batch ``g`` from its shards' pieces, all
-    on one device, into rows [base, base + T + 2*cap) of ``table``: the
-    shards' rows copied in shard order, then the straddlers merged
-    (``rc.merge_straddlers``), clipped, set up and packed into the
-    appendee block. Bit for bit the table of one device. Returns the
-    clip overflow."""
+    """:func:`_batch_segments` for batch ``g`` from its shards' pieces,
+    all on one device, into rows [base, base + T + 2*cap) of ``table``:
+    the shards' rows copied in shard order, then the straddlers merged
+    (``rc.merge_straddlers``) and clipped into the appendee block's K2
+    segment. Bit for bit the table of one device once the pass's segments
+    are written. Returns ([appendee segment], clip overflow)."""
     parts = [pieces[g, k] for k in range(len(b.shards))]
     for (lo, hi), p in zip(b.shards, parts):
         table.packed[base + lo:base + hi] = p["packed"]
@@ -662,11 +666,10 @@ def _mesh_setup(plan: _FramePlan, pieces: dict, g: int, b: _BatchPlan,
     last = next(p["last"] for p in parts if "last" in p)
     app_clip, app_vary, app_valid, _sel, overflow = rc.merge_straddlers(
         [p["cand"] for p in parts], *last, cap, b.tri_count)
-    sp.setup_pack_into(table, base + b.tri_count, app_clip, app_vary,
+    return [sp.Segment(table, base + b.tri_count, app_clip, app_vary,
                        app_valid, plan.width, plan.height,
-                       b.pipeline.cull_mode, z_bias=bias,
-                       base=base + b.tri_count)
-    return overflow
+                       b.pipeline.cull_mode, bias, False,
+                       base + b.tri_count)], overflow
 
 
 def _band_stage(plan: _FramePlan, args: dict, pieces: dict, device):

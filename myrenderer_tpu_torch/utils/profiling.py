@@ -338,6 +338,135 @@ def oracle_frame(packed, bbox, H: int, W: int, depth0: float):
     return d_r, den_r, num_r, w_ids
 
 
+def zeroed_table(table):
+    """A zeroed :class:`setup_pack.RecordTable` shaped as ``table``, on
+    its device."""
+    import torch
+
+    from ..ops import setup_pack as sp
+    return sp.RecordTable(*(torch.zeros_like(t) for t in table))
+
+
+def tables_differ(got: list, want: list):
+    """(values that differ, the largest finite difference) between two
+    lists of record tables, lane by lane; NaN against NaN counts as
+    equal."""
+    import torch
+    bad, err = 0, 0.0
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if a.is_floating_point():
+                differ = ((a.view(torch.int32) != b.view(torch.int32))
+                          & ~(torch.isnan(a) & torch.isnan(b)))
+                both = torch.isfinite(a) & torch.isfinite(b)
+                if bool(both.any()):
+                    err = max(err, float((a[both] - b[both]).abs().max()))
+            else:
+                differ = a != b
+            bad += int(differ.sum())
+    return bad, err
+
+
+def k2_pass_against_plain(segments: list):
+    """A pass's segments (``setup_pack.Segment``, on the card) through K2's
+    launches (``setup_pack.launch_groups``) and through its plain version,
+    each into
+    zeroed tables shaped as the segments'. Returns (values that differ,
+    the largest finite difference, launches). K2's launch count is left as
+    it was."""
+    import torch
+
+    from ..ops import setup_pack as sp
+    tables = {id(s.table): s.table for s in segments}
+    got = {k: zeroed_table(t) for k, t in tables.items()}
+    want = {k: zeroed_table(t) for k, t in tables.items()}
+    launches = sp.K2.launches
+    groups = sp.launch_groups([s._replace(table=got[id(s.table)])
+                               for s in segments])
+    for group in groups:
+        sp.K2(group)
+    sp.K2.launches = launches
+    sp.setup_pack_pass_reference([s._replace(table=want[id(s.table)])
+                                  for s in segments])
+    torch.cuda.synchronize()
+    return (*tables_differ([got[k] for k in tables],
+                           [want[k] for k in tables]), len(groups))
+
+
+def k2_graph_replays(device, replays: int = 30,
+                     sizes=(20_000, 256, 7, 256)) -> int:
+    """K2 captured in one CUDA graph as frames hold it: a merged pass of
+    four segments of ``sizes`` into one table (the first planar with ids
+    and biased, the second read through strided views, cull modes back,
+    none, front, back), then a pass of two segments into two tables (the
+    shards of a mesh); replayed ``replays`` times with every input
+    rewritten in place before each replay (``trisets.setup_batch``); after
+    each replay every table against the plain version on that replay's
+    inputs. Returns the values that differ (NaN against NaN counts as
+    equal), and raises if the graph does not hold exactly two launches.
+    K2's launch count is left as it was."""
+    import torch
+
+    from ..ops import setup_pack as sp
+    from .trisets import setup_batch
+
+    def inputs(n, strided=False):
+        clip = torch.zeros((n, 3, 4), device=device)
+        vary = torch.zeros((n, 3, 4), device=device)
+        if strided:
+            vary = vary.transpose(1, 2).contiguous().transpose(1, 2)
+            clip = torch.zeros((n, 3, 8), device=device)[..., 2:6]
+        return (clip, vary, torch.zeros(n, dtype=torch.bool, device=device),
+                torch.zeros(n, dtype=torch.int32, device=device))
+
+    W, H = 1920, 1080
+    bufs = [inputs(n, k == 1) for k, n in enumerate(sizes)]
+    merged = sp.new_table(sum(sizes), device)
+    shards = [sp.new_table(n, device) for n in sizes[:2]]
+    culls = ("back", "none", "front", "back")
+    first = [sum(sizes[:k]) for k in range(len(sizes))]
+    passes = [
+        [sp.Segment(merged, r, c, v, m, W, H, cull, 2.0 if k == 0 else None,
+                    k == 0, r, ids if k == 0 else None)
+         for k, (r, (c, v, m, ids), cull) in enumerate(zip(first, bufs,
+                                                            culls))],
+        [sp.Segment(t, 0, c, v, m, W, H, "none", 0.0, False, 1000)
+         for t, (c, v, m, _ids) in zip(shards, bufs)]]
+    tables = [merged, *shards]
+    graph = torch.cuda.CUDAGraph()
+    launches = sp.K2.launches
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for segments in passes:
+                sp.setup_pack_pass(segments)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        before = sp.K2.launches
+        with torch.cuda.graph(graph):
+            for segments in passes:
+                sp.setup_pack_pass(segments)
+        held = sp.K2.launches - before
+        if held != len(passes):
+            raise AssertionError(f"the graph holds {held} K2 launches for "
+                                 f"{len(passes)} passes")
+        bad = 0
+        for r in range(replays):
+            for k, (b, n) in enumerate(zip(bufs, sizes)):
+                for t, a in zip(b, setup_batch(n, 7 * r + k)):
+                    t.copy_(torch.from_numpy(a))
+            graph.replay()
+            want = [zeroed_table(t) for t in tables]
+            by_id = {id(t): w for t, w in zip(tables, want)}
+            sp.setup_pack_pass_reference(
+                [s._replace(table=by_id[id(s.table)])
+                 for segments in passes for s in segments])
+            bad += tables_differ(tables, want)[0]
+    sp.K2.launches = launches
+    return bad
+
+
 def k4_graph_replays(device, replays: int = 60,
                      sizes=(300_000, 5_000)) -> int:
     """K4 captured in one CUDA graph as a frame holds it (two calls, one

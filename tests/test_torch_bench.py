@@ -230,21 +230,25 @@ def test_oracle_on_the_tiles_equals_k1_plain_where_a_sliver_spills():
 def test_reference_check_fails_on_wrong_records(monkeypatch, lanes, shift):
     """A setup or pack that writes wrong records agrees with itself,
     graph against eager, but not with the reference: check (b) raises."""
-    from myrenderer_tpu_torch.renderer import draw
-    orig = draw._setup_batch
+    from myrenderer_tpu_torch.ops import setup_pack as sp
+    orig = sp.setup_pack_pass
 
-    def wrong(*a, **kw):
-        # the batch's records are views of the pass's table: edit in place
-        packed, valid, bbox, ovf = orig(*a, **kw)
+    def wrong(segments):
+        # each batch's and appendee block's rows of the pass's table,
+        # edited in place once the pass has written them
+        segments = list(segments)
+        orig(segments)
         lo, hi = lanes
-        part = packed[:, lo:hi]
-        if shift == "ulp":
-            part.copy_(torch.nextafter(part, torch.full_like(part, np.inf)))
-        else:
-            part += 0.5 * packed[:, 0:1].abs()
-        return packed, valid, bbox, ovf
+        for s in segments:
+            packed = s.table.packed[s.row0:s.row0 + s.tri_clip.shape[0]]
+            part = packed[:, lo:hi]
+            if shift == "ulp":
+                part.copy_(torch.nextafter(part,
+                                           torch.full_like(part, np.inf)))
+            else:
+                part += 0.5 * packed[:, 0:1].abs()
 
-    monkeypatch.setattr(draw, "_setup_batch", wrong)
+    monkeypatch.setattr(sp, "setup_pack_pass", wrong)
     cell = bench_torch._smoke_cell("cpu")
     with pytest.raises(AssertionError, match="differs from the reference"):
         bench_torch._checks(cell, "cpu", 0, {})

@@ -70,10 +70,11 @@ def torch_setup_batch(clip, vary, valid, width, height, cull_mode="back",
                          planar)
     table = sp.new_table(base + clip.shape[0] + 2 * tdraw.CLIP_CAPACITY,
                          "cpu")
-    packed, v, bbox, _ovf = tdraw._setup_batch(
+    segments, _ovf = tdraw._batch_segments(
         plan, tris, torch.from_numpy(valid), cull_mode, table,
         z_bias=z_bias, base_index=base)
-    return packed, v, bbox
+    sp.setup_pack_pass(segments)
+    return table.rows(base, base + clip.shape[0] + 2 * tdraw.CLIP_CAPACITY)
 
 
 @pytest.mark.parametrize("cull_mode", ["back", "front", "none"])
@@ -100,6 +101,55 @@ def test_setup_and_pack(cull_mode, z_bias, planar):
     for a, b in zip(jbbox, tbbox):
         assert_bits_equal(a, b)
     assert 0 < int(tvalid[n:].sum()) < 2 * tdraw.CLIP_CAPACITY
+
+
+@pytest.mark.parametrize("culls", [("back", "none"), ("front", "back")])
+def test_two_batch_pass_table(culls):
+    """Two batches written by the pass path (each batch's
+    ``draw._batch_segments``, then one ``setup_pack_pass`` over the four
+    segments, as ``draw._merged_pass`` does) into one table: each batch's
+    rows equal the JAX package's ``_setup_batch`` at its first id, bit for
+    bit in every lane, flag and box. The first batch is planar with ids
+    and biased, the second not."""
+    plan = types.SimpleNamespace(width=160, height=48)
+    cap = tdraw.CLIP_CAPACITY
+    batches = []
+    for k, (n, seed) in enumerate(((300, 21), (130, 22))):
+        clip, vary = random_triangles(n, seed, w_range=(-0.5, 5.0),
+                                      mixed_winding=True)
+        valid = np.random.default_rng(seed).uniform(size=n) < 0.9
+        ids = (np.random.default_rng(seed + 1).permutation(n)
+               .astype(np.int32) if k == 0 else None)
+        batches.append((clip, vary, valid, ids, k == 0, 2.0 if k == 0
+                        else None))
+    table = sp.new_table(sum(b[0].shape[0] + 2 * cap for b in batches),
+                         "cpu")
+    segments, base, bases = [], 0, []
+    for (clip, vary, valid, ids, planar, bias), cull in zip(batches, culls):
+        tris = trc.Triangles(torch.from_numpy(clip), torch.from_numpy(vary),
+                             None if ids is None else torch.from_numpy(ids),
+                             planar)
+        segs, _ovf = tdraw._batch_segments(plan, tris,
+                                           torch.from_numpy(valid), cull,
+                                           table, z_bias=bias,
+                                           base_index=base)
+        segments += segs
+        bases.append(base)
+        base += clip.shape[0] + 2 * cap
+    assert len(sp.launch_groups(segments)) == 1
+    sp.setup_pack_pass(segments)
+    for (clip, vary, valid, ids, planar, bias), cull, lo in zip(
+            batches, culls, bases):
+        hi = lo + clip.shape[0] + 2 * cap
+        jpacked, jvalid, jbbox = jax_setup_batch(
+            clip, vary, valid, 160, 48, cull_mode=cull, z_bias=bias,
+            base=lo, ids=ids, planar=planar)
+        packed, v, bbox = table.rows(lo, hi)
+        assert_bits_equal(jpacked, packed)
+        assert_bits_equal(jvalid, v)
+        for a, b in zip(jbbox, bbox):
+            assert_bits_equal(a, b)
+        assert 0 < int(v[clip.shape[0]:].sum())
 
 
 @pytest.mark.parametrize("n,seed", [(5, 0), (200, 1)])

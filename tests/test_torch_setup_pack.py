@@ -5,8 +5,13 @@ On the CPU ``setup_pack_into`` runs K2's plain version; these tests hold
 it, and the frame built on it, to the code it replaced: each batch's
 ``triangle_setup`` + ``pack_coeffs_full`` + ``viewport_bbox`` and the
 ``torch.cat`` of batch, appendee block and batches, bit for bit in every
-lane. The card's test holds K2 to its plain version."""
+lane. A raster pass's segments go to one ``setup_pack_pass``, which
+equals one ``setup_pack_into`` a segment. The card's tests hold K2's one
+launch a pass to its plain version."""
 
+import re
+
+import numpy as np
 import pytest
 import torch
 
@@ -15,6 +20,7 @@ from myrenderer_tpu_torch.app.stress import StressApp
 from myrenderer_tpu_torch.ops import raster
 from myrenderer_tpu_torch.ops import raster_common as rc
 from myrenderer_tpu_torch.ops import setup_pack as sp
+from myrenderer_tpu_torch.parallel import make_mesh
 from myrenderer_tpu_torch.renderer import draw
 from myrenderer_tpu_torch.utils.scenes import SCRIPTED
 from myrenderer_tpu_torch.utils.trisets import setup_batch
@@ -121,8 +127,9 @@ def test_setup_pack_into_the_table_equals_the_cat_built_records(
         cull_mode, planar, z_bias, with_ids, T):
     """The dispatching function on CPU tensors, into rows [37, 37 + T) of
     a larger table, against ``triangle_setup`` + ``pack_coeffs_full`` +
-    ``viewport_bbox``; then (T > 0) a whole batch's ``_setup_batch`` (its
-    records, then its appendee block, from row 1000, its first id)
+    ``viewport_bbox``; then (T > 0) a whole batch's segments
+    (``_batch_segments``: its records, then its appendee block, from row
+    1000, its first id) written by one ``setup_pack_pass``
     against the cat-built setup it replaced. Every lane, valid flag and box bit for bit, the clip flag
     equal, and no row outside written. The batches
     (``trisets.setup_batch``) hold both windings, straddlers, w at and
@@ -152,8 +159,11 @@ def test_setup_pack_into_the_table_equals_the_cat_built_records(
     row0 = 1000
     table = _table(row0 + T + 2 * CAP + 9)
     before = sp.RecordTable(*(t.clone() for t in table))
-    got = draw._setup_batch(plan, tris, valid, cull_mode, table,
-                            z_bias=z_bias, base_index=1000)
+    segments, ovf = draw._batch_segments(plan, tris, valid, cull_mode,
+                                         table, z_bias=z_bias,
+                                         base_index=1000)
+    sp.setup_pack_pass(segments)
+    got = (*table.rows(row0, row0 + T + 2 * CAP), ovf)
     assert_same(got[0], want[0], "batch records")
     assert_same(got[1], want[1], "batch valid")
     for k in range(4):
@@ -228,6 +238,171 @@ def test_merged_pass_table_and_frames_equal_the_cat_built_pass(
         assert bool(t_new[0][1][-2 * CAP:].any())
 
 
+def strided(clip, vary):
+    """The same batch through strided views: varyings stored
+    channel-major, clip positions inside a wider array."""
+    vary = vary.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.zeros((clip.shape[0], 3, 8), device=clip.device)
+    wide[..., 2:6] = clip
+    return wide[..., 2:6], vary
+
+
+PASS_CASES = {
+    # segments, of them empty (every other), tables
+    "mixed": (7, False, 1),
+    "empty": (7, True, 1),
+    "two_tables": (7, False, 2),
+    "many": (sp.MAX_SEGMENTS + 7, False, 1),
+}
+
+
+def pass_segments(case, seed, tables, device="cpu"):
+    """A pass's segments over ``tables`` (:data:`PASS_CASES`) on
+    ``device``: cull modes, planar and biased forms, ids and none, strided
+    views, sizes that are no multiple of a 64-triangle chunk, made from
+    ``seed``; rows taken one after another from row 3, ids from 1000 +
+    the row. Returns (segments, rows taken)."""
+    count, empty, _n = PASS_CASES[case]
+    sizes = np.random.default_rng(seed).integers(1, 300, count)
+    if empty:
+        sizes[::2] = 0
+    segments, row = [], 3
+    for i, T in enumerate(int(t) for t in sizes):
+        planar, with_ids = bool(i % 2), i % 4 >= 2
+        tris, valid = make_tris(T, seed * 100 + i, planar, with_ids)
+        clip, vary, valid = (t.to(device) for t in (tris.clip, tris.vary,
+                                                     valid))
+        ids = None if tris.ids is None else tris.ids.to(device)
+        if i % 3 == 1:
+            clip, vary = strided(clip, vary)
+        segments.append(sp.Segment(
+            tables[i % len(tables)], row, clip, vary, valid, W, H,
+            ("back", "front", "none")[i % 3], (None, 0.0, 2.0)[i // 2 % 3],
+            planar, 1000 + row, ids))
+        row += T
+    return segments, row
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("case", list(PASS_CASES))
+def test_setup_pack_pass_equals_setup_pack_into_per_segment(case, seed):
+    """A pass's segments written by one :func:`sp.setup_pack_pass` equal
+    the same segments written one :func:`sp.setup_pack_into` each, bit
+    for bit in every lane, flag and box of every table, rows outside the
+    segments untouched; the launches a card would make
+    (:func:`sp.launch_groups`): one, two past MAX_SEGMENTS segments, and
+    no empty segment in any."""
+    n_tables = PASS_CASES[case][2]
+    _segs, rows = pass_segments(case, seed, [None] * n_tables)
+    got = [_table(rows + 9) for _ in range(n_tables)]
+    want = [_table(rows + 9) for _ in range(n_tables)]
+    before = _table(rows + 9)
+    segments, _rows = pass_segments(case, seed, got)
+    sp.setup_pack_pass(segments)
+    for s in pass_segments(case, seed, want)[0]:
+        sp.setup_pack_into(*s)
+    for g, w in zip(got, want):
+        for a, b, what in zip(g, w, ("records", "valid", "boxes")):
+            assert_same(a, b, what)
+    for t in got:
+        written = torch.zeros(rows + 9, dtype=torch.bool)
+        for s in segments:
+            if s.table is t:
+                written[s.row0:s.row0 + s.tri_clip.shape[0]] = True
+        assert bool(written.any())
+        assert_same(t.packed[~written], before.packed[~written], "rest")
+        assert_same(t.valid[~written], before.valid[~written], "rest")
+        assert_same(t.bbox[:, ~written], before.bbox[:, ~written], "rest")
+    groups = sp.launch_groups(segments)
+    assert len(groups) == (2 if case == "many" else 1)
+    assert all(s.tri_clip.shape[0] for grp in groups for s in grp)
+
+
+@pytest.mark.parametrize("sizes", [[], [0, 0], [5], [0, 0, 0] + [7] * 24,
+                                   [1] * 25, [3, 0] * 30])
+def test_launch_groups_take_the_segments_with_triangles_in_order(sizes):
+    segments = [sp.Segment(None, i, torch.zeros((T, 3, 4)), None, None, W,
+                           H) for i, T in enumerate(sizes)]
+    groups = sp.launch_groups(segments)
+    live = [s.row0 for s in segments if s.tri_clip.shape[0]]
+    assert [s.row0 for g in groups for s in g] == live
+    assert all(0 < len(g) <= sp.MAX_SEGMENTS for g in groups)
+    assert len(groups) == -(-len(live) // sp.MAX_SEGMENTS)
+
+
+def test_the_wrapper_and_the_source_agree_on_a_launch():
+    """The segment's fields in the source's order, the segments a launch
+    takes and the mode bits are the wrapper's (the card checks the
+    segment's size when it loads the library)."""
+    with open(sp._SOURCE) as f:
+        src = f.read()
+    body = re.sub(r"//[^\n]*", "", re.search(r"struct Segment \{(.*?)\};",
+                                             src, re.S).group(1))
+    names = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        first, *rest = decl.split(",")
+        names += [re.match(r"\**(\w+)", tok.split()[-1]).group(1)
+                  for tok in [first] + rest]
+    assert names == [name for name, _t in sp._SegmentArgs._fields_]
+    consts = dict(re.findall(r"constexpr int (k\w+) = ([^;]+);", src))
+    assert int(consts["kMaxSegments"]) == sp.MAX_SEGMENTS
+    assert eval(consts["kFormsShift"]) == sp._FORMS_SHIFT
+    assert eval(consts["kBiased"]) == sp._BIASED
+    assert eval(consts["kStageClip"]) == sp._STAGE_CLIP
+    assert eval(consts["kStageVary"]) == sp._STAGE_VARY
+
+
+def _frame_passes(name):
+    """(app or scene, tick, expected K2 passes of one frame as lists of
+    segment sizes) for the path ``name``."""
+    if name == "demo":
+        app = DemoApp(64, 64, device="cpu")
+        return app.tick, [[20000, 2 * CAP, 7, 2 * CAP]]
+    if name == "mesh":
+        app = DemoApp(64, 64, device="cpu",
+                      mesh=make_mesh(devices=["cpu"] * 8))
+        shards = [2500] * 8 + [1] * 7 + [0]
+        # the shards' stage on the one distinct device, then the pass's
+        # appendee blocks
+        return app.tick, [shards, [2 * CAP, 2 * CAP]]
+    scene = SCRIPTED["sequential"]("cpu", "auto")
+    return (lambda: scene.step(0)), [[1, 2 * CAP]] * 3
+
+
+@pytest.mark.parametrize("name", ["demo", "mesh", "sequential"])
+def test_a_raster_pass_sets_up_in_one_k2_pass(monkeypatch, name):
+    """Every segment of a raster pass goes to one ``setup_pack_pass``,
+    after every batch's straddler selection, and a card launches K2 once
+    for it: the merged demo frame's two batches and their appendee
+    blocks in one pass; on a mesh the shards' stage of a device in one and
+    each raster pass's appendee blocks in one; one a sequential pass."""
+    calls, order = [], []
+    orig_pass, orig_select = sp.setup_pack_pass, rc.select_straddlers
+
+    def setup_pack_pass(segments):
+        segments = list(segments)
+        calls.append([s.tri_clip.shape[0] for s in segments])
+        order.append("K2")
+        assert len(sp.launch_groups(segments)) == 1
+        return orig_pass(segments)
+
+    def select_straddlers(*a, **kw):
+        order.append("K4")
+        return orig_select(*a, **kw)
+
+    monkeypatch.setattr(sp, "setup_pack_pass", setup_pack_pass)
+    monkeypatch.setattr(rc, "select_straddlers", select_straddlers)
+    tick, want = _frame_passes(name)
+    calls.clear()
+    order.clear()
+    tick()
+    assert calls == want
+    if name == "demo":
+        assert order == ["K4", "K4", "K2"]
+    if name == "sequential":
+        assert order == ["K4", "K2"] * 3
+
+
 def test_plane_form_bits_follow_the_setup_forms():
     """K2's mask holds ``_plane_forms``' 9 forms for every cull mode,
     layout and bias (setup's, not the oracle's)."""
@@ -286,8 +461,8 @@ def test_k2_wrapper_raises_instead_of_falling_back():
     kernel = sp.SetupPackKernel()
     tris, valid = make_tris(6, 4, False, False)
     with pytest.raises(RuntimeError, match="CUDA toolkit"):
-        kernel(sp.new_table(6, "cpu"), 0, tris.clip, tris.vary, valid, W, H,
-               "back", None, False, 0, None)
+        kernel([sp.Segment(sp.new_table(6, "cpu"), 0, tris.clip, tris.vary,
+                           valid, W, H)])
     assert kernel.launches == 0
 
 
@@ -328,3 +503,33 @@ def test_k2_matches_plain_version_on_card(cuda_device, cull_mode):
                         torch.isnan(a) & torch.isnan(b)
                         if a.is_floating_point() else False)
                     assert bool(same.all()), (planar, z_bias, with_ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PASS_CASES))
+def test_k2_pass_matches_plain_version_on_card(cuda_device, case):
+    """A pass's segments (:data:`PASS_CASES`: strided views, empty
+    segments, two tables, more segments than a launch takes) through
+    ``setup_pack_pass`` (one launch; two past MAX_SEGMENTS), against the
+    plain version: every lane, flag and box bit for bit (NaN against
+    NaN)."""
+    from myrenderer_tpu_torch.utils import profiling
+    n_tables = PASS_CASES[case][2]
+    rows = pass_segments(case, 4, [None] * n_tables)[1]
+    tables = [sp.new_table(rows + 5, cuda_device) for _ in range(n_tables)]
+    segments = pass_segments(case, 4, tables, cuda_device)[0]
+    want = 2 if case == "many" else 1
+    before = sp.K2.launches
+    sp.setup_pack_pass(segments)
+    assert sp.K2.launches == before + want
+    bad, _err, launches = profiling.k2_pass_against_plain(segments)
+    assert (bad, launches) == (0, want)
+
+
+@pytest.mark.cuda
+def test_k2_graph_replays_match_plain_version(cuda_device):
+    """Two K2 passes in one CUDA graph (a merged pass into one table, a
+    pass into two), replayed 30 times with every input rewritten in place:
+    each replay bit-equal to the plain version."""
+    from myrenderer_tpu_torch.utils import profiling
+    assert profiling.k2_graph_replays(cuda_device, replays=30) == 0
